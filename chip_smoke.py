@@ -7,23 +7,26 @@ Needs one NVIDIA GPU (Hopper: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
 
   0. the card's name and power limit (nvidia-smi), the nvcc build of
-     slam_dynamic_tpu_torch/csrc/kernels.cu, and the host's CPU count and
+     slam_dynamic_tpu_torch/csrc/kernels.cu with ptxas's registers,
+     shared memory and spills per kernel, and the host's CPU count and
      load average;
   1. kernel K1 (gated match) against its plain PyTorch version at the
      main path's 2048 x 2048, with forced ties, all-masked inputs and a
-     widened level window: best/second bit-equal, idx equal where a match
-     exists; CUDA-event times of both;
+     widened level window: bit-equal, idx included;
   2. kernel K2 (Hamming matrix) against its plain version at 2048 x 2048,
-     bit-equal; its time, the plain version's and one PyTorch call
-     computing the same matrix (bipolar int8 torch._int_mm, timed here
-     only, never called by the port);
+     bit-equal, beside one PyTorch call computing the same matrix
+     (bipolar int8 torch._int_mm, timed here only, never called by the
+     port);
   3. System.track_rgbd on the synthetic 640x480 RGB-D world, 1000 ORB
      features, bench capacities: fps, p50 ms per frame, keyframes, LOST
      frames, ATE, and the launch counts of K1 and K2 over that run.
 
-It then prints the kernel table as one JSON line and, last, the result
-line. Any failed check raises, and a hang ends in a traceback and a
-nonzero exit after 600 s.
+Kernel, plain and library times are device times (CUDA-graph replay
+between CUDA events, slam_dynamic_tpu_torch/kernel_bench.py), each beside
+the least time the card could take for the same work. It then prints the
+kernel table as one JSON line and, last, the result line. Any failed
+check raises, and a hang ends in a traceback and a nonzero exit after
+600 s.
 """
 import faulthandler
 import json
@@ -36,90 +39,32 @@ faulthandler.dump_traceback_later(600, exit=True)
 
 SEED = 0
 N_FRAMES = 60
-REPS = 20
-
-# H100 SXM peaks used for bound_ms: HBM3 at 3.35 TB/s; __popc issues 16
-# results per clock per SM (CUDA C++ Programming Guide, arithmetic
-# instruction throughput, compute capability 9.0) on 132 SMs at the
-# 1.98 GHz boost clock. Both kernels do 8 popc per descriptor pair, the
-# quarter-rate instruction, so that count sets their operation bound.
-HBM_BYTES_PER_S = 3.35e12
-POPC_PER_S = 132 * 16 * 1.98e9
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def bound(bytes_moved, popc_ops):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = popc_ops / POPC_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations")
-
-
-def time_ms(fn, reps=REPS):
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def k1_problem(rng, n, m, dup_frac, dev):
-    """Random gated-match inputs at the main path's types; duplicated
-    descriptors force distance ties."""
-    import numpy as np
-    import torch
-    kp_desc = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
-    lm_desc = rng.integers(0, 2**32, (m, 8), dtype=np.uint32)
-    if dup_frac:
-        k = max(int(m * dup_frac), 1)
-        lm_desc[rng.integers(0, m, k)] = lm_desc[rng.integers(0, m, k)]
-        lm_desc[: k // 2] = kp_desc[: k // 2]
-    arrays = (kp_desc.view(np.int32),
-              rng.uniform(0, 640, (n, 2)).astype(np.float32),
-              rng.integers(0, 8, n).astype(np.int32),
-              rng.uniform(size=n) < 0.9,
-              lm_desc.view(np.int32),
-              rng.uniform(-50, 690, (m, 2)).astype(np.float32),
-              rng.uniform(5, 400, m).astype(np.float32),
-              rng.integers(0, 8, m).astype(np.int32),
-              rng.uniform(size=m) < 0.9)
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            for a in arrays]
-
-
-def phase_k1(dev, gm, INVALID):
+def phase_k1(dev, gm, kb, INVALID):
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED)
     n = m = 2048
-    cases = [("ties", k1_problem(rng, n, m, 0.3, dev), -1, 1),
-             ("random", k1_problem(rng, n, m, 0.0, dev), -1, 1)]
-    masked = k1_problem(rng, n, m, 0.0, dev)
+    cases = [("ties", kb.k1_problem(rng, n, m, 0.3, dev), -1, 1),
+             ("random", kb.k1_problem(rng, n, m, 0.0, dev), -1, 1)]
+    masked = kb.k1_problem(rng, n, m, 0.0, dev)
     masked[8] = torch.zeros(m, dtype=torch.bool, device=dev)
     cases.append(("all_masked", masked, -1, 1))
     cases.append(("wide_window", cases[1][1], -7, 7))
     max_err = 0
     for name, args, lo, hi in cases:
-        ik, bk, sk = gm.gated_match(*args, lvl_min=lo, lvl_max=hi)
-        ip, bp, sp = gm.gated_match_plain(*args, lvl_min=lo, lvl_max=hi)
+        got = gm.gated_match(*args, lvl_min=lo, lvl_max=hi)
+        ref = gm.gated_match_plain(*args, lvl_min=lo, lvl_max=hi)
         torch.cuda.synchronize()
-        has = bp < INVALID
-        err = max(int((bk - bp).abs().max()), int((sk - sp).abs().max()),
-                  int(((ik - ip).abs() * has).max()))
-        if not (torch.equal(bk, bp) and torch.equal(sk, sp)
-                and torch.equal(ik[has], ip[has])):
+        err = max(int((k - p).abs().max()) for k, p in zip(got, ref))
+        if not all(torch.equal(k, p) for k, p in zip(got, ref)):
             raise AssertionError(f"K1 {name}: kernel != plain (err {err})")
-        if name == "all_masked" and not bool((bk == INVALID).all()):
+        if name == "all_masked" and not bool((got[1] == INVALID).all()):
             raise AssertionError("K1 all_masked: a pair passed the gates")
         max_err = max(max_err, err)
     _, b_narrow, _ = gm.gated_match(*cases[1][1], lvl_min=0, lvl_max=0)
@@ -127,13 +72,13 @@ def phase_k1(dev, gm, INVALID):
     if not bool((b_wide <= b_narrow).all()):
         raise AssertionError("K1: widening the level window lost matches")
     args = cases[0][1]
-    ms = time_ms(lambda: gm.gated_match(*args))
-    plain_ms = time_ms(lambda: gm.gated_match_plain(*args))
-    bytes_moved = n * (32 + 8 + 4 + 1) + m * (32 + 8 + 4 + 4 + 1) + 3 * n * 4
-    b_ms, b_by = bound(bytes_moved, 8 * n * m)
+    ms = kb.device_ms(lambda: gm.gated_match(*args))
+    plain_ms = kb.device_ms(lambda: gm.gated_match_plain(*args))
+    b_ms, b_by = kb.k1_bound(args)
     log(f"phase 1 K1 gated_match {n}x{m}: bit-equal with plain on "
-        f"{len(cases)} cases; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"{len(cases)} cases; device time kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{b_ms / ms:.1%} of it reached)")
     return dict(name="gated_match", route="cuda",
                 source="slam_dynamic_tpu_torch/csrc/kernels.cu",
                 replaces="slam_dynamic_tpu/ops/pallas_match.py:83",
@@ -141,13 +86,12 @@ def phase_k1(dev, gm, INVALID):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def phase_k2(dev, hm):
+def phase_k2(dev, hm, kb):
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED + 1)
     n = m = 2048
-    a, b = (torch.from_numpy(rng.integers(0, 2**32, (r, 8), dtype=np.uint32)
-                             .view(np.int32)).to(dev) for r in (n, m))
+    a, b = kb.desc_pair(rng, n, m, dev)
     dk = hm.hamming_matrix(a, b)
     dp = hm.hamming_matrix_plain(a, b)
     torch.cuda.synchronize()
@@ -162,17 +106,18 @@ def phase_k2(dev, hm):
         bits = (d[:, :, None] >> shifts) & 1
         return (bits.reshape(d.shape[0], 256) * 2 - 1).to(torch.int8)
 
-    A, B = bipolar(a), bipolar(b)
-    dot = torch._int_mm(A, B.t())
+    A, Bt = bipolar(a), bipolar(b).t()
+    dot = torch._int_mm(A, Bt)
     if not torch.equal((256 - dot) >> 1, dk):
         raise AssertionError("K2: library yardstick disagrees")
-    ms = time_ms(lambda: hm.hamming_matrix(a, b))
-    plain_ms = time_ms(lambda: hm.hamming_matrix_plain(a, b))
-    lib_ms = time_ms(lambda: torch._int_mm(A, B.t()))
-    b_ms, b_by = bound(n * 32 + m * 32 + n * m * 4, 8 * n * m)
-    log(f"phase 2 K2 hamming_matrix {n}x{m}: bit-equal with plain; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm {lib_ms:.4f} "
-        f"ms, bound {b_ms:.4f} ms ({b_by})")
+    ms = kb.device_ms(lambda: hm.hamming_matrix(a, b))
+    plain_ms = kb.device_ms(lambda: hm.hamming_matrix_plain(a, b))
+    lib_ms = kb.device_ms(lambda: torch._int_mm(A, Bt))
+    b_ms, b_by = kb.k2_bound(n, m)
+    log(f"phase 2 K2 hamming_matrix {n}x{m}: bit-equal with plain; device "
+        f"time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{b_ms / ms:.1%} of it reached)")
     return dict(name="hamming_matrix", route="cuda",
                 source="slam_dynamic_tpu_torch/csrc/kernels.cu",
                 replaces="slam_dynamic_tpu/ops/pallas_hamming.py:42",
@@ -224,6 +169,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    from slam_dynamic_tpu_torch import kernel_bench as kb
     from slam_dynamic_tpu_torch.ops import gated_match as gm
     from slam_dynamic_tpu_torch.ops import hamming as hm
     from slam_dynamic_tpu_torch.ops import kernels
@@ -238,12 +184,16 @@ def main():
     log(f"phase 0 build: {kernels.library_path().name} in "
         f"{time.perf_counter() - t0:.2f} s (torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)})")
+    ptxas = kernels.library_path().with_suffix(".ptxas.txt").read_text()
+    for line in ptxas.splitlines():
+        if "entry function" in line or "Used" in line or "spill" in line:
+            log("  ptxas: " + line.split(":", 1)[-1].strip())
     # the System phase is host-bound: its fps moves with the host's CPU
     log(f"host: {os.cpu_count()} CPUs, torch threads "
         f"{torch.get_num_threads()}, load average "
         f"{' '.join(f'{x:.2f}' for x in os.getloadavg())}")
     dev = torch.device("cuda")
-    rows = [phase_k1(dev, gm, hm.INVALID), phase_k2(dev, hm)]
+    rows = [phase_k1(dev, gm, kb, hm.INVALID), phase_k2(dev, hm, kb)]
     launches = phase_system(gm, hm)
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -10,165 +10,416 @@
 //
 // Descriptors are [rows, 8] 32-bit words (the int32 bit view of the JAX
 // package's uint32 lanes): 256 bits per ORB descriptor.
+//
+// Both kernels take the Hamming distances from the binary tensor-core
+// product (BMMA on sm_90a):
+//   mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc
+// gives popc(a & b) for a 16 x 8 tile of descriptor pairs in one
+// instruction (K = 256 is exactly one descriptor), and
+//   hamming(a, b) = popc(a) + popc(b) - 2 popc(a & b)
+// with the per-row popcounts taken once per row, not per pair. Fragments:
+// lane = 4 g + t holds A rows g and g + 8 and B column g, words 2t and
+// 2t + 1 (any assignment of words to K positions serves, as long as A and
+// B share it); accumulator c0, c1 are row g, columns 2t, 2t + 1, and c2,
+// c3 the same columns of row g + 8.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kInvalid = 1 << 15;  // distance of a gated-out pair
 
+// popc(a & b) of 16 A rows (a: a0..a3 as above) and 8 B columns (b).
+__device__ __forceinline__ void mma_and_popc(int (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y),
+        "r"(0));
+}
+
+// 16-byte global -> shared copy; src_bytes = 0 fills the 16 bytes with 0.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // K1: gated nearest-landmark match (replaces the Pallas kernel
 // slam_dynamic_tpu/ops/pallas_match.py:83 _match_kernel).
 //
-// Per keypoint n: over all landmarks m, the Hamming distance
-// popc(kp_desc[n] ^ lm_desc[m]) summed over 8 words, with a pair allowed iff
+// Per keypoint n: over all landmarks m, the Hamming distance of
+// kp_desc[n] and lm_desc[m], with a pair allowed iff
 //   kp_ok[n] & lm_ok[m]
-//   & du*du + dv*dv <= lm_r2[m]       (du = kp_x - lm_u, direct form)
+//   & du*du + dv*dv <= r[m]*r[m]      (du = kp_x - lm_u, direct form)
 //   & lvl_min <= kp_lvl[n] - lm_lvl[m] <= lvl_max;
 // a disallowed pair has distance kInvalid. Outputs the best distance, the
 // runner-up and the index of the first landmark at the best distance.
 //
-// Bound on H100: each of the N*M pairs costs 8 popc, which the SM issues
-// at a quarter of the INT32 rate, so the kernel is bound by integer
-// operations (the inputs are a few hundred KB and stay in L2). Design: one
-// thread per keypoint keeps (best, second, idx) in registers; a block of
-// K1_TN keypoints streams K1_TM-landmark tiles through shared memory, so
-// each landmark word is read from device memory once per block and from
-// shared memory (a broadcast: all threads read the same m) per pair. The
-// landmark loop runs in increasing m with strict '<' on the best, so ties
-// keep the lowest index, as jax.lax.top_k does. Tails are masked.
-// The radius test uses explicitly rounded operations so that nvcc does not
-// contract it into an FMA and round differently from the plain version.
+// Bound on H100: 15 CUDA-core operations per allowed pair (the gates, the
+// candidate key and its top-2 update), 10 of them on the half-rate integer
+// pipe; the inputs are a few hundred KB, so the kernel is bound by
+// operations. Design:
+// - every candidate is one key (dist << 16) | m, unique per landmark, so a
+//   top-2 over keys is associative and commutative and is exactly the
+//   sequential semantics: the lowest key gives the best distance and the
+//   lowest index among ties, the second key the runner-up. The landmark
+//   range can therefore be split and merged in any order;
+// - a cluster of K1_S blocks shares K1_ROWS keypoints, each block takes
+//   1/K1_S of the landmarks and each of its warps a half of every staged
+//   chunk, so N = M = 2048 runs 512 blocks (2048 warps) on 132 SMs;
+// - the distances of 16 keypoints x 8 landmarks come from one BMMA; the
+//   gates and the top-2 update run on the accumulator fragment in
+//   registers, then the 4 lanes of a quad, the two warps of a row tile
+//   and the K1_S blocks of the cluster (through distributed shared
+//   memory) merge their top-2 keys;
+// - a block's landmarks are staged in chunks of K1_CH, each thread issuing
+//   all its loads before its first shared store; the keypoint loads go
+//   out first and are used after the first chunk's loads;
+// - a gated-out keypoint gets x = NaN and a gated-out landmark r^2 = -inf,
+//   so the radius test alone rejects them; r^2 is __fmul_rn(r, r), the
+//   bits of the plain version's r ** 2, and the radius test uses
+//   explicitly rounded operations so that nvcc does not contract it into
+//   an FMA and round differently from the plain version.
 // ---------------------------------------------------------------------------
-constexpr int K1_TN = 64;
-constexpr int K1_TM = 128;
+constexpr int K1_S = 8;          // blocks of a cluster: the landmark splits
+constexpr int K1_ROWS = 32;      // keypoints of a block: two 16-row tiles
+constexpr int K1_HALVES = 2;     // warps that share a row tile
+constexpr int K1_THREADS = 32 * (K1_ROWS / 16) * K1_HALVES;
+constexpr int K1_CH = 256;       // landmarks staged per chunk
+constexpr int K1_SPLIT = 8 * K1_HALVES;  // whole 8-landmark tiles per warp
+constexpr uint32_t kKeyNone = ((uint32_t)kInvalid << 16) | 0xFFFFu;
+constexpr uint32_t kNegInf = 0xff800000u;  // bits of -inf
 
-__global__ void __launch_bounds__(K1_TN)
+static_assert(K1_ROWS % K1_S == 0, "each block merges whole rows");
+static_assert(K1_S * K1_HALVES <= 32 &&
+                  K1_ROWS * K1_HALVES <= K1_THREADS &&
+                  K1_ROWS * K1_HALVES % 32 == 0,
+              "the merge reduces within whole warps of the block");
+static_assert(K1_CH % K1_SPLIT == 0 && K1_CH % K1_THREADS == 0,
+              "chunks split into whole tiles and whole thread loads");
+
+__device__ __forceinline__ void top2_merge(uint32_t& b1, uint32_t& b2,
+                                           uint32_t o1, uint32_t o2) {
+  b2 = min(min(b2, o2), max(b1, o1));
+  b1 = min(b1, o1);
+}
+
+// Stage landmarks [c0, c0 + cnt) into shared memory, padded to a multiple
+// of K1_SPLIT with landmarks that match nothing (key kKeyNone). Every
+// thread issues all its loads before its first store.
+__device__ __forceinline__ void k1_stage(
+    uint32_t (*s_desc)[8], float4* s_geo, uint2* s_key,
+    const uint32_t* __restrict__ lm_desc, const float* __restrict__ lm_uv,
+    const float* __restrict__ lm_radius, const int32_t* __restrict__ lm_lvl,
+    const uint8_t* __restrict__ lm_ok, int c0, int cnt) {
+  constexpr int kPer = K1_CH / K1_THREADS;
+  uint4 d0[kPer], d1[kPer];
+  float2 uv[kPer];
+  float r[kPer];
+  int lv[kPer];
+  bool ok[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int j = threadIdx.x + q * K1_THREADS;
+    d0[q] = d1[q] = make_uint4(0u, 0u, 0u, 0u);
+    uv[q] = make_float2(0.f, 0.f);
+    r[q] = 0.f;
+    lv[q] = 0;
+    ok[q] = false;
+    if (j < cnt) {
+      const size_t lm = (size_t)c0 + j;
+      d0[q] = ((const uint4*)lm_desc)[2 * lm];
+      d1[q] = ((const uint4*)lm_desc)[2 * lm + 1];
+      uv[q] = ((const float2*)lm_uv)[lm];
+      r[q] = lm_radius[lm];
+      lv[q] = lm_lvl[lm];
+      ok[q] = lm_ok[lm] != 0;
+    }
+  }
+  const int staged = (cnt + K1_SPLIT - 1) / K1_SPLIT * K1_SPLIT;
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int j = threadIdx.x + q * K1_THREADS;
+    if (j < staged) {
+      const uint32_t p = __popc(d0[q].x) + __popc(d0[q].y) + __popc(d0[q].z) +
+                         __popc(d0[q].w) + __popc(d1[q].x) + __popc(d1[q].y) +
+                         __popc(d1[q].z) + __popc(d1[q].w);
+      const uint32_t mk = j < cnt ? (uint32_t)(c0 + j) : 0xFFFFu;
+      ((uint4*)s_desc[j])[0] = d0[q];
+      ((uint4*)s_desc[j])[1] = d1[q];
+      s_geo[j] = make_float4(uv[q].x, uv[q].y,
+                             ok[q] ? __fmul_rn(r[q], r[q])
+                                   : __int_as_float(kNegInf),
+                             __int_as_float(lv[q]));
+      s_key[j] = make_uint2((p << 16) + mk, ((uint32_t)kInvalid << 16) + mk);
+    }
+  }
+}
+
+__global__ void __cluster_dims__(K1_S, 1, 1) __launch_bounds__(K1_THREADS)
 gated_match_kernel(const uint32_t* __restrict__ kp_desc,
                    const float* __restrict__ kp_xy,
                    const int32_t* __restrict__ kp_lvl,
                    const uint8_t* __restrict__ kp_ok,
                    const uint32_t* __restrict__ lm_desc,
                    const float* __restrict__ lm_uv,
-                   const float* __restrict__ lm_r2,
+                   const float* __restrict__ lm_radius,
                    const int32_t* __restrict__ lm_lvl,
                    const uint8_t* __restrict__ lm_ok,
                    int32_t* __restrict__ out_idx,
                    int32_t* __restrict__ out_best,
                    int32_t* __restrict__ out_second,
-                   int n, int m, int lvl_min, int lvl_max) {
-  __shared__ uint32_t s_desc[K1_TM][8];
-  __shared__ float s_u[K1_TM];
-  __shared__ float s_v[K1_TM];
-  __shared__ float s_r2[K1_TM];
-  __shared__ int32_t s_lvl[K1_TM];
-  __shared__ int32_t s_ok[K1_TM];
+                   int n, int m, int lvl_min, int lvl_max, int span) {
+  __shared__ __align__(16) uint32_t s_desc[K1_CH][8];
+  __shared__ float4 s_geo[K1_CH];   // u, v, r^2 (-inf: gated out), level
+  __shared__ uint2 s_key[K1_CH];    // (popc << 16) + m, (kInvalid << 16) + m
+  __shared__ uint2 s_top[K1_HALVES][K1_ROWS];
 
-  const int row = blockIdx.x * K1_TN + threadIdx.x;
-  const bool live = row < n;
-  uint32_t a[8];
-  float x = 0.f, y = 0.f;
-  int lvl = 0;
-  bool ok = false;
-  if (live) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile_row = (warp % (K1_ROWS / 16)) * 16;
+  const int half = warp / (K1_ROWS / 16);
+  const int lo = min(rank * span, m), hi = min(lo + span, m);
+
+  // rows g and g + 8 of this warp's 16-keypoint tile: loaded first, used
+  // after the first chunk's landmark loads have gone out
+  uint2 w[2];
+  float2 xy[2];
+  int lvl[2];
+  bool ok[2];
 #pragma unroll
-    for (int w = 0; w < 8; ++w) a[w] = kp_desc[row * 8 + w];
-    x = kp_xy[row * 2];
-    y = kp_xy[row * 2 + 1];
-    lvl = kp_lvl[row];
-    ok = kp_ok[row] != 0;
-  } else {
+  for (int i = 0; i < 2; ++i) {
+    const int r = blockIdx.y * K1_ROWS + tile_row + g + 8 * i;
+    w[i] = make_uint2(0u, 0u);
+    xy[i] = make_float2(0.f, 0.f);
+    lvl[i] = 0;
+    ok[i] = false;
+    if (r < n) {
+      w[i] = *(const uint2*)(kp_desc + (size_t)r * 8 + 2 * t);
+      xy[i] = *(const float2*)(kp_xy + 2 * (size_t)r);
+      lvl[i] = kp_lvl[r];
+      ok[i] = kp_ok[r] != 0;
+    }
+  }
+  k1_stage(s_desc, s_geo, s_key, lm_desc, lm_uv, lm_radius, lm_lvl, lm_ok,
+           lo, min(K1_CH, hi - lo));
+  uint32_t a[4];
+  float x[2];
+  uint32_t pa[2];   // popc(kp_desc) << 16
 #pragma unroll
-    for (int w = 0; w < 8; ++w) a[w] = 0u;
+  for (int i = 0; i < 2; ++i) {
+    a[i] = w[i].x;
+    a[2 + i] = w[i].y;
+    int p = __popc(w[i].x) + __popc(w[i].y);
+    p += __shfl_xor_sync(0xffffffffu, p, 1);
+    p += __shfl_xor_sync(0xffffffffu, p, 2);
+    pa[i] = (uint32_t)p << 16;
+    x[i] = ok[i] ? xy[i].x : __int_as_float(0x7fc00000);  // NaN: no radius
   }
 
-  int best = kInvalid, second = kInvalid, idx = 0;
-  for (int col0 = 0; col0 < m; col0 += K1_TM) {
-    const int cnt = min(K1_TM, m - col0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < K1_TM * 8; i += K1_TN) {
-      const int r = i >> 3, w = i & 7;
-      s_desc[r][w] = r < cnt ? lm_desc[(col0 + r) * 8 + w] : 0u;
-    }
-    for (int r = threadIdx.x; r < K1_TM; r += K1_TN) {
-      const bool in = r < cnt;
-      s_u[r] = in ? lm_uv[(col0 + r) * 2] : 0.f;
-      s_v[r] = in ? lm_uv[(col0 + r) * 2 + 1] : 0.f;
-      s_r2[r] = in ? lm_r2[col0 + r] : -1.f;
-      s_lvl[r] = in ? lm_lvl[col0 + r] : 0;
-      s_ok[r] = in ? (int32_t)(lm_ok[col0 + r] != 0) : 0;
+  uint32_t b1[2] = {kKeyNone, kKeyNone}, b2[2] = {kKeyNone, kKeyNone};
+  for (int c0 = lo; c0 < hi; c0 += K1_CH) {
+    const int cnt = min(K1_CH, hi - c0);
+    const int staged = (cnt + K1_SPLIT - 1) / K1_SPLIT * K1_SPLIT;
+    if (c0 != lo) {
+      __syncthreads();  // the previous chunk is no longer read
+      k1_stage(s_desc, s_geo, s_key, lm_desc, lm_uv, lm_radius, lm_lvl,
+               lm_ok, c0, cnt);
     }
     __syncthreads();
-    if (!ok) continue;  // every pair of this keypoint is gated out
-    for (int j = 0; j < cnt; ++j) {
-      int d = 0;
+    const int tiles = staged / (8 * K1_HALVES);
+    for (int tile = half * tiles; tile < (half + 1) * tiles; ++tile) {
+      const int j0 = tile * 8;
+      int acc[4];
+      mma_and_popc(acc, a, *(const uint2*)&s_desc[j0 + g][2 * t]);
 #pragma unroll
-      for (int w = 0; w < 8; ++w) d += __popc(a[w] ^ s_desc[j][w]);
-      const float du = __fsub_rn(x, s_u[j]);
-      const float dv = __fsub_rn(y, s_v[j]);
-      const float dd = __fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv));
-      const int dl = lvl - s_lvl[j];
-      const bool allowed = s_ok[j] && dd <= s_r2[j] && dl >= lvl_min &&
-                           dl <= lvl_max;
-      d = allowed ? d : kInvalid;
-      if (d < best) {
-        second = best;
-        best = d;
-        idx = col0 + j;
-      } else if (d < second) {
-        second = d;
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + 2 * t + e;
+        const float4 geo = s_geo[j];
+        const uint2 key = s_key[j];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float du = __fsub_rn(x[i], geo.x);
+          const float dv = __fsub_rn(xy[i].y, geo.y);
+          const float dd = __fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv));
+          const int dl = lvl[i] - __float_as_int(geo.w);
+          const bool allowed = dd <= geo.z && dl >= lvl_min && dl <= lvl_max;
+          // ((pa + pb - 2 popc(a & b)) << 16) + m
+          const uint32_t k =
+              allowed ? pa[i] + key.x - ((uint32_t)acc[2 * i + e] << 17)
+                      : key.y;
+          b2[i] = min(b2[i], max(b1[i], k));
+          b1[i] = min(b1[i], k);
+        }
       }
     }
   }
-  if (live) {
-    out_idx[row] = idx;
-    out_best[row] = best;
-    out_second[row] = second;
+
+  // the four lanes of a quad hold disjoint landmarks of the same two rows
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const uint32_t o1 = __shfl_xor_sync(0xffffffffu, b1[i], off);
+      const uint32_t o2 = __shfl_xor_sync(0xffffffffu, b2[i], off);
+      top2_merge(b1[i], b2[i], o1, o2);
+    }
   }
+  if (t == 0) {
+    s_top[half][tile_row + g] = make_uint2(b1[0], b2[0]);
+    s_top[half][tile_row + g + 8] = make_uint2(b1[1], b2[1]);
+  }
+  cluster.sync();
+
+  // block `rank` merges K1_ROWS / K1_S rows over the cluster's
+  // K1_S * K1_HALVES partial results, one result per lane
+  constexpr int kParts = K1_S * K1_HALVES;
+  constexpr int kMergeRows = K1_ROWS / K1_S;
+  if (tid < kMergeRows * kParts) {
+    const int row = rank * kMergeRows + tid / kParts, part = tid % kParts;
+    const uint2* src = cluster.map_shared_rank(&s_top[0][0], part / K1_HALVES);
+    uint2 v = src[(part % K1_HALVES) * K1_ROWS + row];
+#pragma unroll
+    for (int off = kParts / 2; off > 0; off >>= 1) {
+      const uint32_t o1 = __shfl_xor_sync(0xffffffffu, v.x, off);
+      const uint32_t o2 = __shfl_xor_sync(0xffffffffu, v.y, off);
+      top2_merge(v.x, v.y, o1, o2);
+    }
+    const int r = blockIdx.y * K1_ROWS + row;
+    if (part == 0 && r < n) {
+      out_idx[r] = v.x == kKeyNone ? 0 : (int32_t)(v.x & 0xFFFFu);
+      out_best[r] = (int32_t)(v.x >> 16);
+      out_second[r] = (int32_t)(v.y >> 16);
+    }
+  }
+  cluster.sync();  // no block exits while another reads its shared memory
 }
 
 // ---------------------------------------------------------------------------
 // K2: full [N, M] int32 Hamming matrix (replaces the Pallas kernel
 // slam_dynamic_tpu/ops/pallas_hamming.py:42 _hamming_kernel).
 //
-// Bound on H100: 8 popc per output (a quarter-rate integer instruction)
-// against 4 bytes written per output; at the mapping stage's 2048 x 2048
-// the popc issue rate bounds it a little above the 16 MB output write.
-// Design: one 32 x 32 output tile per block of 32 x 8 threads. The tile's
-// A-rows and B-rows (32 x 8 words each) are staged in shared memory
-// (padded to 9 words against bank conflicts); each thread keeps its B-row
-// in registers and produces four outputs, and a warp writes 32 consecutive
-// int32 of one output row, so the stores are coalesced.
+// Bound on H100: the 4-byte output per pair. At the mapping stage's
+// 2048 x 2048 the 16.8 MB write takes 5.0 us at 3.35 TB/s, while the
+// distances on the tensor cores take about 1 us. Design: the distances
+// come from BMMA, so the write is the limit. A block of 8 warps owns a
+// 64 x 128 output tile: its 64 A and 128 B descriptors (6 KB) arrive by
+// cp.async (zero-filled past the edge), each warp computes 32 x 32 outputs
+// with 8 BMMAs, and the epilogue writes the fragments to a padded shared
+// tile (conflict-free) from which each warp stores whole output rows, 16
+// bytes per lane. Ragged edges are masked; rows whose length is not a
+// multiple of 4 words are stored a word at a time. N = M = 2048 runs 512
+// blocks, one wave at 4 blocks per SM.
 // ---------------------------------------------------------------------------
-constexpr int K2_T = 32;
-constexpr int K2_ROWS = 8;
+constexpr int K2_BM = 64;
+constexpr int K2_BN = 128;
+constexpr int K2_THREADS = 256;
+constexpr int K2_LD = K2_BN + 8;  // padded row of the output tile (words)
+constexpr int K2_WARPS_N = K2_BN / 32;  // each warp owns 32 x 32 outputs
+constexpr int K2_SEGS = K2_BN / 128;    // 128-column segments of a tile row
 
-__global__ void __launch_bounds__(K2_T * K2_ROWS)
+static_assert((K2_BM / 32) * K2_WARPS_N * 32 == K2_THREADS &&
+                  K2_BN % 128 == 0,
+              "8 warps of 32 x 32 outputs; rows stored 128 columns a time");
+
+__global__ void __launch_bounds__(K2_THREADS)
 hamming_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                int32_t* __restrict__ out, int n, int m) {
-  __shared__ uint32_t sa[K2_T][9];
-  __shared__ uint32_t sb[K2_T][9];
-  const int row0 = blockIdx.y * K2_T, col0 = blockIdx.x * K2_T;
-  const int tid = threadIdx.y * K2_T + threadIdx.x;
-  {
-    const int r = tid >> 3, w = tid & 7;  // 256 threads cover 32 x 8 words
-    sa[r][w] = row0 + r < n ? a[(row0 + r) * 8 + w] : 0u;
-    sb[r][w] = col0 + r < m ? b[(col0 + r) * 8 + w] : 0u;
+  __shared__ __align__(16) uint32_t sa[K2_BM][8];
+  __shared__ __align__(16) uint32_t sb[K2_BN][8];
+  __shared__ int spa[K2_BM];
+  __shared__ int spb[K2_BN];
+  __shared__ __align__(16) int32_t sout[K2_BM][K2_LD];
+
+  const int row0 = blockIdx.y * K2_BM, col0 = blockIdx.x * K2_BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  for (int i = tid; i < (K2_BM + K2_BN) * 2; i += K2_THREADS) {
+    const bool is_a = i < K2_BM * 2;
+    const int r = (is_a ? i : i - K2_BM * 2) >> 1, piece = i & 1;
+    const int src_row = (is_a ? row0 : col0) + r;
+    const bool in = src_row < (is_a ? n : m);
+    const uint32_t* src =
+        (is_a ? a : b) + (size_t)(in ? src_row : 0) * 8 + piece * 4;
+    cp_async16((is_a ? sa[r] : sb[r]) + piece * 4, src, in ? 16 : 0);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  for (int r = tid; r < K2_BM + K2_BN; r += K2_THREADS) {
+    const uint32_t* d = r < K2_BM ? sa[r] : sb[r - K2_BM];
+    int p = 0;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) p += __popc(d[w]);
+    if (r < K2_BM) spa[r] = p; else spb[r - K2_BM] = p;
+  }
+
+  // warp (wr, wc): rows wr .. wr + 31, columns wc .. wc + 31
+  const int wr = (warp / K2_WARPS_N) * 32, wc = (warp % K2_WARPS_N) * 32;
+  int acc[2][4][4];
+  uint32_t af[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint2 lo = *(const uint2*)&sa[wr + 16 * i + g][2 * t];
+    const uint2 hi = *(const uint2*)&sa[wr + 16 * i + g + 8][2 * t];
+    af[i][0] = lo.x;
+    af[i][1] = hi.x;
+    af[i][2] = lo.y;
+    af[i][3] = hi.y;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint2 bf = *(const uint2*)&sb[wc + 8 * j + g][2 * t];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mma_and_popc(acc[i][j], af[i], bf);
+  }
+  __syncthreads();  // the popcounts are in shared memory
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = wr + 16 * i + g, c = wc + 8 * j + 2 * t;
+      const int p0 = spb[c], p1 = spb[c + 1];
+      *(int2*)&sout[r][c] = make_int2(spa[r] + p0 - 2 * acc[i][j][0],
+                                      spa[r] + p1 - 2 * acc[i][j][1]);
+      *(int2*)&sout[r + 8][c] = make_int2(spa[r + 8] + p0 - 2 * acc[i][j][2],
+                                          spa[r + 8] + p1 - 2 * acc[i][j][3]);
+    }
   }
   __syncthreads();
-  const int col = col0 + threadIdx.x;
-  uint32_t bw[8];
-#pragma unroll
-  for (int w = 0; w < 8; ++w) bw[w] = sb[threadIdx.x][w];
-#pragma unroll
-  for (int i = threadIdx.y; i < K2_T; i += K2_ROWS) {
-    const int row = row0 + i;
-    int acc = 0;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) acc += __popc(sa[i][w] ^ bw[w]);
-    if (row < n && col < m) out[(int64_t)row * m + col] = acc;
+
+  const bool vec = (m & 3) == 0;  // rows start on 16-byte boundaries
+  for (int i = warp; i < K2_BM * K2_SEGS; i += K2_THREADS / 32) {
+    const int r = i / K2_SEGS, cs = (i % K2_SEGS) * 128 + 4 * lane;
+    const int row = row0 + r, c = col0 + cs;
+    if (row >= n) break;
+    const int4 v = *(const int4*)&sout[r][cs];
+    int32_t* dst = out + (size_t)row * m + c;
+    if (vec && c < m) {
+      *(int4*)dst = v;
+    } else {
+      if (c < m) dst[0] = v.x;
+      if (c + 1 < m) dst[1] = v.y;
+      if (c + 2 < m) dst[2] = v.z;
+      if (c + 3 < m) dst[3] = v.w;
+    }
   }
 }
 
@@ -179,18 +430,23 @@ extern "C" {
 int slam_gated_match(const void* kp_desc, const void* kp_xy,
                      const void* kp_lvl, const void* kp_ok,
                      const void* lm_desc, const void* lm_uv,
-                     const void* lm_r2, const void* lm_lvl,
+                     const void* lm_radius, const void* lm_lvl,
                      const void* lm_ok, void* out_idx, void* out_best,
                      void* out_second, int n, int m, int lvl_min,
                      int lvl_max, void* stream) {
   if (n > 0) {
-    const dim3 grid((n + K1_TN - 1) / K1_TN);
-    gated_match_kernel<<<grid, K1_TN, 0, (cudaStream_t)stream>>>(
+    // each block of a cluster takes `span` landmarks (a multiple of
+    // K1_SPLIT, so every warp sees whole 8-landmark tiles)
+    const int per = (m + K1_S - 1) / K1_S;
+    const int span = (per + K1_SPLIT - 1) / K1_SPLIT * K1_SPLIT;
+    const dim3 grid(K1_S, (n + K1_ROWS - 1) / K1_ROWS);
+    gated_match_kernel<<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)kp_desc, (const float*)kp_xy,
         (const int32_t*)kp_lvl, (const uint8_t*)kp_ok,
-        (const uint32_t*)lm_desc, (const float*)lm_uv, (const float*)lm_r2,
-        (const int32_t*)lm_lvl, (const uint8_t*)lm_ok, (int32_t*)out_idx,
-        (int32_t*)out_best, (int32_t*)out_second, n, m, lvl_min, lvl_max);
+        (const uint32_t*)lm_desc, (const float*)lm_uv,
+        (const float*)lm_radius, (const int32_t*)lm_lvl,
+        (const uint8_t*)lm_ok, (int32_t*)out_idx, (int32_t*)out_best,
+        (int32_t*)out_second, n, m, lvl_min, lvl_max, span);
   }
   return (int)cudaGetLastError();
 }
@@ -198,9 +454,8 @@ int slam_gated_match(const void* kp_desc, const void* kp_xy,
 int slam_hamming_matrix(const void* a, const void* b, void* out, int n,
                         int m, void* stream) {
   if (n > 0 && m > 0) {
-    const dim3 grid((m + K2_T - 1) / K2_T, (n + K2_T - 1) / K2_T);
-    const dim3 block(K2_T, K2_ROWS);
-    hamming_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+    const dim3 grid((m + K2_BN - 1) / K2_BN, (n + K2_BM - 1) / K2_BM);
+    hamming_kernel<<<grid, K2_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (const uint32_t*)b, (int32_t*)out, n, m);
   }
   return (int)cudaGetLastError();

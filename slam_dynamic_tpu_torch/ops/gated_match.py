@@ -25,6 +25,10 @@ from .hamming import INVALID, hamming_matrix_plain, top2_min
 # Launches of kernel K1 (one per CUDA call of gated_match).
 launches = 0
 
+# K1 packs a landmark index into the low 16 bits of its candidate keys;
+# 0xFFFF marks padding, so the last usable index is 0xFFFE.
+MAX_LANDMARKS = 0xFFFF
+
 
 def accept_match(best, second, max_dist, ratio):
     """The accept tests of ``hamming.match_nn`` on kernel output."""
@@ -47,6 +51,11 @@ def gated_match_plain(kp_desc, kp_xy, kp_level, kp_ok,
     ok = kp_ok[:, None] & lm_ok[None, :]
     d = torch.where(in_r & in_l & ok, hamming_matrix_plain(kp_desc, lm_desc),
                     INVALID)
+    if d.shape[1] < 2:
+        # the Pallas kernel pads the landmarks with gated-out ones: with
+        # fewer than two, the runner-up (and with none, the best) is INVALID
+        d = torch.cat([d, d.new_full((d.shape[0], 2 - d.shape[1]), INVALID)],
+                      dim=1)
     idx, best, second = top2_min(d)
     return idx.to(torch.int32), best, second
 
@@ -59,8 +68,8 @@ def gated_match(kp_desc, kp_xy, kp_level, kp_ok,
     kp_desc [N, 8] int32, kp_xy [N, 2] f32, kp_level [N] int32, kp_ok [N]
     bool; lm_desc [M, 8] int32, lm_uv [M, 2] f32, lm_radius [M] f32,
     lm_lvl [M] int32, lm_ok [M] bool. Returns (idx, best, second), each
-    [N] int32 (INVALID where no pair passes). Kernel K1 on CUDA tensors,
-    the plain version on CPU tensors.
+    [N] int32 (INVALID where no pair passes). Kernel K1 on CUDA tensors
+    (M <= MAX_LANDMARKS), the plain version on CPU tensors.
     """
     if kp_desc.device.type == "cpu":
         return gated_match_plain(kp_desc, kp_xy, kp_level, kp_ok, lm_desc,
@@ -69,26 +78,29 @@ def gated_match(kp_desc, kp_xy, kp_level, kp_ok,
     global launches
     dev = kp_desc.device
     n, m = kp_desc.shape[0], lm_desc.shape[0]
-    # radius squared in f32 here, as the reference's wrapper does
-    r2 = (lm_radius.to(torch.float32) ** 2).contiguous()
+    if m > MAX_LANDMARKS:
+        raise ValueError(f"gated_match: {m} landmarks, the kernel takes at "
+                         f"most {MAX_LANDMARKS}")
+    # the kernel squares the radius in f32, as the reference's wrapper does
+    radius = lm_radius.to(torch.float32).contiguous()
     args = [
-        ("kp_desc", kp_desc, torch.int32, (n, 8)),
-        ("kp_xy", kp_xy, torch.float32, (n, 2)),
-        ("kp_level", kp_level, torch.int32, (n,)),
-        ("kp_ok", kp_ok, torch.bool, (n,)),
-        ("lm_desc", lm_desc, torch.int32, (m, 8)),
-        ("lm_uv", lm_uv, torch.float32, (m, 2)),
-        ("lm_r2", r2, torch.float32, (m,)),
-        ("lm_lvl", lm_lvl, torch.int32, (m,)),
-        ("lm_ok", lm_ok, torch.bool, (m,)),
+        ("kp_desc", kp_desc, torch.int32, (n, 8), 8),
+        ("kp_xy", kp_xy, torch.float32, (n, 2), 8),
+        ("kp_level", kp_level, torch.int32, (n,), 1),
+        ("kp_ok", kp_ok, torch.bool, (n,), 1),
+        ("lm_desc", lm_desc, torch.int32, (m, 8), 16),
+        ("lm_uv", lm_uv, torch.float32, (m, 2), 8),
+        ("lm_radius", radius, torch.float32, (m,), 1),
+        ("lm_lvl", lm_lvl, torch.int32, (m,), 1),
+        ("lm_ok", lm_ok, torch.bool, (m,), 1),
     ]
-    for name, t, dtype, shape in args:
-        kernels.require(t, name, dtype, shape, dev)
+    for name, t, dtype, shape, align in args:
+        kernels.require(t, name, dtype, shape, dev, align)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     best = torch.empty(n, dtype=torch.int32, device=dev)
     second = torch.empty(n, dtype=torch.int32, device=dev)
     status = kernels.lib().slam_gated_match(
-        *[t.data_ptr() for _, t, _, _ in args],
+        *[t.data_ptr() for _, t, _, _, _ in args],
         idx.data_ptr(), best.data_ptr(), second.data_ptr(),
         n, m, int(lvl_min), int(lvl_max), kernels.stream_handle(dev))
     kernels.check(status, "gated_match")

@@ -66,8 +66,8 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     global launches
     dev = desc_a.device
     n, m = desc_a.shape[0], desc_b.shape[0]
-    kernels.require(desc_a, "desc_a", torch.int32, (n, 8), dev)
-    kernels.require(desc_b, "desc_b", torch.int32, (m, 8), dev)
+    kernels.require(desc_a, "desc_a", torch.int32, (n, 8), dev, 16)
+    kernels.require(desc_b, "desc_b", torch.int32, (m, 8), dev, 16)
     out = torch.empty((n, m), dtype=torch.int32, device=dev)
     status = kernels.lib().slam_hamming_matrix(
         desc_a.data_ptr(), desc_b.data_ptr(), out.data_ptr(), n, m,

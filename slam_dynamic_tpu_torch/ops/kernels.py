@@ -22,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "kernels.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 BUILD_TIMEOUT_S = 180
 
 _lib = None
@@ -42,39 +42,48 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def library_path(source: Path = SOURCE) -> Path:
+    digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"slam_kernels_{digest[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for this source exists."""
-    so = library_path()
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` unless its library exists. ptxas's report
+    (registers, shared memory and spills of each kernel) is kept beside
+    the library as ``<name>.ptxas.txt``."""
+    so = library_path(source)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True,
                           timeout=BUILD_TIMEOUT_S)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, so)        # atomic: a reader never sees half a library
     return so
+
+
+def load(so: Path) -> ctypes.CDLL:
+    """Load a kernel library built by ``build`` and declare its entry
+    points."""
+    handle = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = handle
+        _lib = load(build())
     return _lib
 
 
@@ -89,8 +98,9 @@ def stream_handle(device: torch.device) -> int:
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-            device: torch.device):
-    """Validate one kernel argument (the kernels take no other layout)."""
+            device: torch.device, align: int = 1):
+    """Validate one kernel argument (the kernels take no other layout);
+    ``align`` is the byte alignment of the kernel's vector loads."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -99,3 +109,5 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: address not aligned to {align} bytes")

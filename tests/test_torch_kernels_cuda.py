@@ -20,10 +20,11 @@ INVALID = 1 << 15
 def _problem(rng, n, m, dup_frac=0.0):
     kp_desc = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
     lm_desc = rng.integers(0, 2**32, (m, 8), dtype=np.uint32)
-    if dup_frac:   # duplicated descriptors force distance ties
+    if dup_frac and m:   # duplicated descriptors force distance ties
         k = max(int(m * dup_frac), 1)
         lm_desc[rng.integers(0, m, k)] = lm_desc[rng.integers(0, m, k)]
-        lm_desc[: k // 2] = kp_desc[: k // 2]
+        h = min(k // 2, n)
+        lm_desc[:h] = kp_desc[:h]
     return [kp_desc.view(np.int32),
             rng.uniform(0, 640, (n, 2)).astype(np.float32),
             rng.integers(0, 8, n).astype(np.int32),
@@ -75,7 +76,7 @@ def test_k2_kernel_equals_plain_on_card(cuda_device, n, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lo,hi", [(0, 0), (-7, 7)])
+@pytest.mark.parametrize("lo,hi", [(0, 0), (-7, 7), (2, -2)])
 def test_k1_kernel_level_window_on_card(cuda_device, lo, hi):
     args = _torch(_problem(np.random.default_rng(9), 2048, 2048),
                   cuda_device)
@@ -92,3 +93,136 @@ def test_kernel_wrapper_rejects_bad_input(cuda_device):
     b = torch.zeros((4, 8), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         hm.hamming_matrix(b, b.t().contiguous().t())    # not contiguous
+
+
+def _check_k1(args, lvl_min=-1, lvl_max=1):
+    """Kernel against plain, all three outputs bit-equal (idx included:
+    both give 0 where no pair passes)."""
+    got = gm.gated_match(*args, lvl_min=lvl_min, lvl_max=lvl_max)
+    ref = gm.gated_match_plain(*args, lvl_min=lvl_min, lvl_max=lvl_max)
+    for name, k, p in zip(("idx", "best", "second"), got, ref):
+        assert torch.equal(k, p), f"{name}: kernel != plain"
+    return got
+
+
+def _open_gates(args):
+    """Every pair allowed: all ok, one level, radius over the image."""
+    args[2] = torch.zeros_like(args[2])
+    args[3] = torch.ones_like(args[3])
+    args[6] = torch.full_like(args[6], 1e4)
+    args[7] = torch.zeros_like(args[7])
+    args[8] = torch.ones_like(args[8])
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(2047, 2049), (17, 4097), (1, 1), (1, 2),
+                                 (33, 7), (5, 0)])
+def test_k1_kernel_ragged_shapes_on_card(cuda_device, n, m):
+    args = _torch(_problem(np.random.default_rng(n * 31 + m), n, m, 0.2),
+                  cuda_device)
+    _check_k1(args)
+    _check_k1(_open_gates(args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(2047, 2049), (17, 4097), (1, 1), (4, 0),
+                                 (0, 4), (129, 130)])
+def test_k2_kernel_ragged_shapes_on_card(cuda_device, n, m):
+    rng = np.random.default_rng(n * 31 + m)
+    a, b = _torch([_desc(rng, n), _desc(rng, m)], cuda_device)
+    d = hm.hamming_matrix(a, b)
+    assert d.shape == (n, m)
+    assert torch.equal(d, hm.hamming_matrix_plain(a, b))
+
+
+@pytest.mark.cuda
+def test_kernels_edge_descriptors_on_card(cuda_device):
+    """All-zero against all-ones is 256 apart, identical descriptors 0."""
+    zeros = torch.zeros((3, 8), dtype=torch.int32, device=cuda_device)
+    ones = torch.full((5, 8), -1, dtype=torch.int32, device=cuda_device)
+    both = torch.cat([zeros, ones])
+    d = hm.hamming_matrix(both, both)
+    expect = torch.full((8, 8), 256, dtype=torch.int32, device=cuda_device)
+    expect[:3, :3] = 0
+    expect[3:, 3:] = 0
+    assert torch.equal(d, expect)
+    # K1 with open gates: keypoint 0 is all-zero, 1 all-ones; landmarks
+    # alternate all-ones / all-zero, so the best is at distance 0 and the
+    # lowest index of its kind, the runner-up 0 as well
+    args = _torch(_problem(np.random.default_rng(3), 2, 64), cuda_device)
+    args[0] = torch.stack([zeros[0], ones[0]])
+    args[4] = torch.stack([ones[0], zeros[0]] * 32)
+    idx, best, second = _check_k1(_open_gates(args))
+    assert idx.tolist() == [1, 0] and best.tolist() == [0, 0]
+    assert second.tolist() == [0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2048, 4097])
+def test_k1_kernel_tie_across_splits_on_card(cuda_device, m):
+    """A keypoint's exact copy planted at two landmarks, lo < hi: in
+    different blocks of the landmark split, in the two warps of one block,
+    in neighbouring 8-landmark tiles and in neighbouring columns. The lower
+    index must win."""
+    n = 256
+    rng = np.random.default_rng(m)
+    args = _problem(rng, n, m)
+    q = n // 4
+    lo = rng.integers(0, m // 2 - 256, n)
+    hi = rng.integers(m // 2, m, n)                     # another block
+    lo[q:2 * q] -= lo[q:2 * q] % 256                    # first warp's half
+    hi[q:2 * q] = lo[q:2 * q] + 128 + rng.integers(0, 128, q)
+    hi[2 * q:3 * q] = lo[2 * q:3 * q] + 8               # next tile
+    hi[3 * q:] = lo[3 * q:] + 1                         # next column
+    kp, lm = args[0].copy(), args[4].copy()
+    for r in range(n):
+        lm[hi[r]] = kp[r]
+    for r in range(n):
+        lm[lo[r]] = kp[r]
+    args[0], args[4] = kp, lm
+    idx, best, second = _check_k1(_open_gates(_torch(args, cuda_device)))
+    # rows whose two copies were not overwritten by another row's plant
+    keep = [r for r in range(n) if np.array_equal(lm[lo[r]], kp[r])
+            and np.array_equal(lm[hi[r]], kp[r])]
+    assert len(keep) > n // 2
+    assert (best[keep] == 0).all() and (second[keep] == 0).all()
+    assert idx[keep].tolist() == [int(lo[r]) for r in keep]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["keypoints", "landmarks"])
+def test_k1_kernel_all_masked_on_card(cuda_device, which):
+    args = _torch(_problem(np.random.default_rng(11), 300, 2048),
+                  cuda_device)
+    k = 3 if which == "keypoints" else 8
+    args[k] = torch.zeros_like(args[k])
+    idx, best, second = _check_k1(args)
+    assert (idx == 0).all()
+    assert (best == INVALID).all() and (second == INVALID).all()
+
+
+@pytest.mark.cuda
+def test_k1_kernel_landmark_limit_on_card(cuda_device):
+    """M at the key-packing limit works, with the best planted at the last
+    index; one landmark more raises."""
+    n, m = 64, gm.MAX_LANDMARKS
+    rng = np.random.default_rng(5)
+    args = _problem(rng, n, m)
+    args[4][m - 1] = args[0][0]
+    args = _open_gates(_torch(args, cuda_device))
+    idx, best, _ = _check_k1(args)
+    assert int(idx[0]) == m - 1 and int(best[0]) == 0
+    more = _torch(_problem(rng, n, m + 1), cuda_device)
+    before = gm.launches
+    with pytest.raises(ValueError):
+        gm.gated_match(*more)
+    assert gm.launches == before
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_rejects_misaligned_descriptors(cuda_device):
+    flat = torch.zeros(8 * 5, dtype=torch.int32, device=cuda_device)
+    shifted = flat[1:33].view(4, 8)          # 4-byte aligned only
+    with pytest.raises(ValueError):
+        hm.hamming_matrix(shifted, shifted)
