@@ -12,14 +12,19 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      load average;
   1. kernel K1 (gated match) against its plain PyTorch version at the
      main path's 2048 x 2048, with forced ties, all-masked inputs and a
-     widened level window: bit-equal, idx included;
+     widened level window: bit-equal, idx included, and its device time
+     on those random inputs;
   2. kernel K2 (Hamming matrix) against its plain version at 2048 x 2048,
      bit-equal, beside one PyTorch call computing the same matrix
      (bipolar int8 torch._int_mm, timed here only, never called by the
      port);
   3. System.track_rgbd on the synthetic 640x480 RGB-D world, 1000 ORB
      features, bench capacities: fps, p50 ms per frame, keyframes, LOST
-     frames, ATE, and the launch counts of K1 and K2 over that run.
+     frames, ATE, and the launch counts of K1 and K2 over that run; the
+     inputs of its K1 calls are kept;
+  4. K1 on those inputs: bit-equal with its plain version on every call,
+     their shares of ok keypoints and landmarks, and the device time and
+     bound per call that the kernel table reports.
 
 Kernel, plain and library times are device times (CUDA-graph replay
 between CUDA events, slam_dynamic_tpu_torch/kernel_bench.py), each beside
@@ -73,12 +78,35 @@ def phase_k1(dev, gm, kb, INVALID):
         raise AssertionError("K1: widening the level window lost matches")
     args = cases[0][1]
     ms = kb.device_ms(lambda: gm.gated_match(*args))
-    plain_ms = kb.device_ms(lambda: gm.gated_match_plain(*args))
     b_ms, b_by = kb.k1_bound(args)
     log(f"phase 1 K1 gated_match {n}x{m}: bit-equal with plain on "
-        f"{len(cases)} cases; device time kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{b_ms / ms:.1%} of it reached)")
+        f"{len(cases)} cases; random inputs, 90% of keypoints and "
+        f"landmarks ok: device time kernel {ms:.5f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}, {b_ms / ms:.1%} of it reached)")
+    return max_err
+
+
+def phase_k1_path(gm, kb, calls, max_err):
+    """K1 on the inputs of the System run's own K1 calls."""
+    import torch
+    for args, lo, hi in calls:
+        got = gm.gated_match(*args, lvl_min=lo, lvl_max=hi)
+        ref = gm.gated_match_plain(*args, lvl_min=lo, lvl_max=hi)
+        torch.cuda.synchronize()
+        err = max(int((k - p).abs().max()) for k, p in zip(got, ref))
+        if not all(torch.equal(k, p) for k, p in zip(got, ref)):
+            raise AssertionError(f"K1 on the path's inputs: kernel != plain "
+                                 f"(err {err})")
+        max_err = max(max_err, err)
+    kp_ok, lm_ok = kb.ok_shares(calls)
+    ms = kb.calls_ms(gm.gated_match, calls)
+    plain_ms = kb.calls_ms(gm.gated_match_plain, calls)
+    b_ms, b_by = kb.k1_calls_bound(calls)
+    log(f"phase 4 K1 gated_match on the {len(calls)} calls of phase 3: "
+        f"bit-equal with plain; ok keypoints {kp_ok:.1%}, ok landmarks "
+        f"{lm_ok:.1%} (mean per call); device time per call kernel "
+        f"{ms:.5f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}, {b_ms / ms:.1%} of it reached)")
     return dict(name="gated_match", route="cuda",
                 source="slam_dynamic_tpu_torch/csrc/kernels.cu",
                 replaces="slam_dynamic_tpu/ops/pallas_match.py:83",
@@ -125,7 +153,7 @@ def phase_k2(dev, hm, kb):
                 bound_by=b_by, library_ms=lib_ms)
 
 
-def phase_system(gm, hm):
+def phase_system(gm, hm, kb):
     import numpy as np
     import torch
     from slam_dynamic_tpu_torch.io.bench_world import bench_world
@@ -136,16 +164,17 @@ def phase_system(gm, hm):
     system = System(cfg)                   # device defaults to cuda
     gm.launches = 0
     hm.launches = 0
-    times, states, n_kf = [], [], 0
+    times, states, n_kf, calls = [], [], 0, []
     t_run = time.perf_counter()
-    for i in range(N_FRAMES):
-        t0 = time.perf_counter()
-        st = system.track_rgbd(gray8[i], depth16[i],
-                               float(seq.timestamps[i]))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        states.append(st.state)
-        n_kf += int(st.is_keyframe)
+    with kb.recording_k1(calls):
+        for i in range(N_FRAMES):
+            t0 = time.perf_counter()
+            st = system.track_rgbd(gray8[i], depth16[i],
+                                   float(seq.timestamps[i]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            states.append(st.state)
+            n_kf += int(st.is_keyframe)
     wall = time.perf_counter() - t_run
     launches = {"gated_match": gm.launches, "hamming_matrix": hm.launches}
     traj = system.trajectory
@@ -160,7 +189,10 @@ def phase_system(gm, hm):
         f"not-OK frames {n_lost}, ATE {ate_mm:.3f} mm, launches {launches}")
     if min(launches.values()) <= 0 or n_lost or ate_mm >= 30.0 or n_kf < 3:
         raise AssertionError("System phase failed its checks")
-    return launches
+    if len(calls) != launches["gated_match"]:
+        raise AssertionError(f"{len(calls)} K1 calls kept, "
+                             f"{launches['gated_match']} launched")
+    return launches, calls
 
 
 def main():
@@ -193,8 +225,10 @@ def main():
         f"{torch.get_num_threads()}, load average "
         f"{' '.join(f'{x:.2f}' for x in os.getloadavg())}")
     dev = torch.device("cuda")
-    rows = [phase_k1(dev, gm, kb, hm.INVALID), phase_k2(dev, hm, kb)]
-    launches = phase_system(gm, hm)
+    k1_err = phase_k1(dev, gm, kb, hm.INVALID)
+    k2_row = phase_k2(dev, hm, kb)
+    launches, calls = phase_system(gm, hm, kb)
+    rows = [phase_k1_path(gm, kb, calls, k1_err), k2_row]
     for r in rows:
         r["launches"] = launches[r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

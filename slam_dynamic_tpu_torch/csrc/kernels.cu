@@ -70,48 +70,66 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // a disallowed pair has distance kInvalid. Outputs the best distance, the
 // runner-up and the index of the first landmark at the best distance.
 //
-// Bound on H100: 15 CUDA-core operations per allowed pair (the gates, the
-// candidate key and its top-2 update), 10 of them on the half-rate integer
-// pipe; the inputs are a few hundred KB, so the kernel is bound by
-// operations. Design:
-// - every candidate is one key (dist << 16) | m, unique per landmark, so a
-//   top-2 over keys is associative and commutative and is exactly the
-//   sequential semantics: the lowest key gives the best distance and the
-//   lowest index among ties, the second key the runner-up. The landmark
-//   range can therefore be split and merged in any order;
+// Bound on H100: per pair with both ok flags set, 6 fp32 operations (the
+// radius test) and 6 on the half-rate integer pipe (the level window, the
+// candidate key and its top-2 update; kernel_bench.py counts them); the
+// inputs are a few hundred KB, so the kernel is bound by operations.
+// Design:
+// - every allowed pair is one key (dist' << 16) | m, unique per landmark,
+//   where dist' = kKeyBias + popc(b) - 2 popc(a & b) is the distance less
+//   the row's own popc(a) (a constant of the row, added back at the end),
+//   so the key costs one multiply-add. A top-2 over keys is associative
+//   and commutative and is exactly the sequential semantics: the lowest
+//   key gives the best distance and the lowest index among ties, the
+//   second key the runner-up, and a row with no allowed pair keeps
+//   kKeyNone (distance kInvalid, index 0). A disallowed pair leaves the
+//   top-2 as it is, and the landmark range can be split and merged in any
+//   order;
 // - a cluster of K1_S blocks shares K1_ROWS keypoints, each block takes
-//   1/K1_S of the landmarks and each of its warps a half of every staged
-//   chunk, so N = M = 2048 runs 512 blocks (2048 warps) on 132 SMs;
+//   every K1_S-th 8-landmark tile and each of its warps every other
+//   staged tile, so N = M = 2048 runs 512 blocks (2048 warps) on 132 SMs
+//   in one wave, and the gated-out landmarks, which the path puts at the
+//   tail of a landmark set, are spread evenly over the warps: the time is
+//   that of the slowest warp;
 // - the distances of 16 keypoints x 8 landmarks come from one BMMA; the
 //   gates and the top-2 update run on the accumulator fragment in
 //   registers, then the 4 lanes of a quad, the two warps of a row tile
 //   and the K1_S blocks of the cluster (through distributed shared
 //   memory) merge their top-2 keys;
-// - a block's landmarks are staged in chunks of K1_CH, each thread issuing
-//   all its loads before its first shared store; the keypoint loads go
-//   out first and are used after the first chunk's loads;
+// - work on gated-out inputs is skipped: a cluster whose keypoints are all
+//   gated out (the padding at the tail of a frame's keypoints) writes its
+//   rows' empty result and leaves after the first chunk's loads, and an
+//   8-landmark tile with no ok landmark is skipped by the whole warp;
+// - a block's tiles are staged in chunks of K1_CH landmarks, each thread
+//   issuing all its loads before its first shared store; the keypoint
+//   loads go out first and are used after the first chunk's loads;
 // - a gated-out keypoint gets x = NaN and a gated-out landmark r^2 = -inf,
 //   so the radius test alone rejects them; r^2 is __fmul_rn(r, r), the
 //   bits of the plain version's r ** 2, and the radius test uses
 //   explicitly rounded operations so that nvcc does not contract it into
-//   an FMA and round differently from the plain version.
+//   an FMA and round differently from the plain version. The level window
+//   is one unsigned compare of kp_lvl - lvl_min - lm_lvl against
+//   lvl_max - lvl_min, exact under int32 wrap-around as the plain
+//   version's subtraction is.
 // ---------------------------------------------------------------------------
 constexpr int K1_S = 8;          // blocks of a cluster: the landmark splits
 constexpr int K1_ROWS = 32;      // keypoints of a block: two 16-row tiles
 constexpr int K1_HALVES = 2;     // warps that share a row tile
 constexpr int K1_THREADS = 32 * (K1_ROWS / 16) * K1_HALVES;
 constexpr int K1_CH = 256;       // landmarks staged per chunk
-constexpr int K1_SPLIT = 8 * K1_HALVES;  // whole 8-landmark tiles per warp
-constexpr uint32_t kKeyNone = ((uint32_t)kInvalid << 16) | 0xFFFFu;
+constexpr int K1_CT = K1_CH / 8;  // 8-landmark tiles per chunk
+constexpr int K1_PARTS = K1_S * K1_HALVES;   // partial top-2s of a row
+constexpr int K1_MERGE_ROWS = K1_ROWS / K1_S;  // rows each block merges
+constexpr uint32_t kKeyNone = 0xFFFFFFFFu;  // above every candidate key
+constexpr uint32_t kKeyBias = 256;  // keeps popc(b) - 2 popc(a & b) >= 0
 constexpr uint32_t kNegInf = 0xff800000u;  // bits of -inf
 
 static_assert(K1_ROWS % K1_S == 0, "each block merges whole rows");
-static_assert(K1_S * K1_HALVES <= 32 &&
-                  K1_ROWS * K1_HALVES <= K1_THREADS &&
+static_assert(K1_PARTS <= 32 && K1_ROWS * K1_HALVES <= K1_THREADS &&
                   K1_ROWS * K1_HALVES % 32 == 0,
               "the merge reduces within whole warps of the block");
-static_assert(K1_CH % K1_SPLIT == 0 && K1_CH % K1_THREADS == 0,
-              "chunks split into whole tiles and whole thread loads");
+static_assert(K1_CH % K1_THREADS == 0 && K1_THREADS % 8 == 0,
+              "chunks split into whole thread loads of whole tiles");
 
 __device__ __forceinline__ void top2_merge(uint32_t& b1, uint32_t& b2,
                                            uint32_t o1, uint32_t o2) {
@@ -119,14 +137,15 @@ __device__ __forceinline__ void top2_merge(uint32_t& b1, uint32_t& b2,
   b1 = min(b1, o1);
 }
 
-// Stage landmarks [c0, c0 + cnt) into shared memory, padded to a multiple
-// of K1_SPLIT with landmarks that match nothing (key kKeyNone). Every
-// thread issues all its loads before its first store.
+// Stage the block's tiles [t0, t0 + cnt) into shared memory (its tile k
+// is the landmark set's tile k * K1_S + rank; past the last landmark it
+// is padded with gated-out ones), and mark each tile that holds an ok
+// landmark. Every thread issues all its loads before its first store.
 __device__ __forceinline__ void k1_stage(
-    uint32_t (*s_desc)[8], float4* s_geo, uint2* s_key,
+    uint32_t (*s_desc)[8], float4* s_geo, uint32_t* s_key, uint8_t* s_live,
     const uint32_t* __restrict__ lm_desc, const float* __restrict__ lm_uv,
     const float* __restrict__ lm_radius, const int32_t* __restrict__ lm_lvl,
-    const uint8_t* __restrict__ lm_ok, int c0, int cnt) {
+    const uint8_t* __restrict__ lm_ok, int m, int rank, int t0, int cnt) {
   constexpr int kPer = K1_CH / K1_THREADS;
   uint4 d0[kPer], d1[kPer];
   float2 uv[kPer];
@@ -136,13 +155,13 @@ __device__ __forceinline__ void k1_stage(
 #pragma unroll
   for (int q = 0; q < kPer; ++q) {
     const int j = threadIdx.x + q * K1_THREADS;
+    const int lm = (((t0 + (j >> 3)) * K1_S + rank) << 3) + (j & 7);
     d0[q] = d1[q] = make_uint4(0u, 0u, 0u, 0u);
     uv[q] = make_float2(0.f, 0.f);
     r[q] = 0.f;
     lv[q] = 0;
     ok[q] = false;
-    if (j < cnt) {
-      const size_t lm = (size_t)c0 + j;
+    if ((j >> 3) < cnt && lm < m) {
       d0[q] = ((const uint4*)lm_desc)[2 * lm];
       d1[q] = ((const uint4*)lm_desc)[2 * lm + 1];
       uv[q] = ((const float2*)lm_uv)[lm];
@@ -151,22 +170,26 @@ __device__ __forceinline__ void k1_stage(
       ok[q] = lm_ok[lm] != 0;
     }
   }
-  const int staged = (cnt + K1_SPLIT - 1) / K1_SPLIT * K1_SPLIT;
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int q = 0; q < kPer; ++q) {
     const int j = threadIdx.x + q * K1_THREADS;
-    if (j < staged) {
+    const int lm = (((t0 + (j >> 3)) * K1_S + rank) << 3) + (j & 7);
+    // a warp's 32 lanes stage 4 whole tiles
+    const unsigned live = __ballot_sync(0xffffffffu, ok[q]);
+    if ((j >> 3) < cnt) {
       const uint32_t p = __popc(d0[q].x) + __popc(d0[q].y) + __popc(d0[q].z) +
                          __popc(d0[q].w) + __popc(d1[q].x) + __popc(d1[q].y) +
                          __popc(d1[q].z) + __popc(d1[q].w);
-      const uint32_t mk = j < cnt ? (uint32_t)(c0 + j) : 0xFFFFu;
       ((uint4*)s_desc[j])[0] = d0[q];
       ((uint4*)s_desc[j])[1] = d1[q];
       s_geo[j] = make_float4(uv[q].x, uv[q].y,
                              ok[q] ? __fmul_rn(r[q], r[q])
                                    : __int_as_float(kNegInf),
                              __int_as_float(lv[q]));
-      s_key[j] = make_uint2((p << 16) + mk, ((uint32_t)kInvalid << 16) + mk);
+      // a padding landmark is never allowed: its key is never read
+      s_key[j] = ((kKeyBias + p) << 16) + (uint32_t)lm;
+      if ((lane & 7) == 0) s_live[j >> 3] = ((live >> lane) & 0xFFu) != 0;
     }
   }
 }
@@ -184,11 +207,13 @@ gated_match_kernel(const uint32_t* __restrict__ kp_desc,
                    int32_t* __restrict__ out_idx,
                    int32_t* __restrict__ out_best,
                    int32_t* __restrict__ out_second,
-                   int n, int m, int lvl_min, int lvl_max, int span) {
+                   int n, int m, int lvl_min, int lvl_max) {
   __shared__ __align__(16) uint32_t s_desc[K1_CH][8];
   __shared__ float4 s_geo[K1_CH];   // u, v, r^2 (-inf: gated out), level
-  __shared__ uint2 s_key[K1_CH];    // (popc << 16) + m, (kInvalid << 16) + m
+  __shared__ uint32_t s_key[K1_CH];  // ((kKeyBias + popc) << 16) + m
+  __shared__ uint8_t s_live[K1_CH / 8];  // the tile holds an ok landmark
   __shared__ uint2 s_top[K1_HALVES][K1_ROWS];
+  __shared__ int s_pa[K1_ROWS];     // popc(kp_desc) of the block's rows
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -196,7 +221,10 @@ gated_match_kernel(const uint32_t* __restrict__ kp_desc,
   const int g = lane >> 2, t = lane & 3;
   const int tile_row = (warp % (K1_ROWS / 16)) * 16;
   const int half = warp / (K1_ROWS / 16);
-  const int lo = min(rank * span, m), hi = min(lo + span, m);
+  // tiles rank, rank + K1_S, ... of the landmark set
+  const int n_tiles = (m + 7) >> 3;
+  const int my_tiles = rank < n_tiles ? (n_tiles - rank + K1_S - 1) / K1_S
+                                      : 0;
 
   // rows g and g + 8 of this warp's 16-keypoint tile: loaded first, used
   // after the first chunk's landmark loads have gone out
@@ -218,11 +246,11 @@ gated_match_kernel(const uint32_t* __restrict__ kp_desc,
       ok[i] = kp_ok[r] != 0;
     }
   }
-  k1_stage(s_desc, s_geo, s_key, lm_desc, lm_uv, lm_radius, lm_lvl, lm_ok,
-           lo, min(K1_CH, hi - lo));
+  k1_stage(s_desc, s_geo, s_key, s_live, lm_desc, lm_uv, lm_radius, lm_lvl,
+           lm_ok, m, rank, 0, min(K1_CT, my_tiles));
   uint32_t a[4];
   float x[2];
-  uint32_t pa[2];   // popc(kp_desc) << 16
+  uint32_t kl[2];   // kp_lvl - lvl_min
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     a[i] = w[i].x;
@@ -230,22 +258,36 @@ gated_match_kernel(const uint32_t* __restrict__ kp_desc,
     int p = __popc(w[i].x) + __popc(w[i].y);
     p += __shfl_xor_sync(0xffffffffu, p, 1);
     p += __shfl_xor_sync(0xffffffffu, p, 2);
-    pa[i] = (uint32_t)p << 16;
+    if (t == 0 && half == 0) s_pa[tile_row + g + 8 * i] = p;
     x[i] = ok[i] ? xy[i].x : __int_as_float(0x7fc00000);  // NaN: no radius
+    kl[i] = (uint32_t)lvl[i] - (uint32_t)lvl_min;
+  }
+  const uint32_t range = (uint32_t)lvl_max - (uint32_t)lvl_min;
+
+  // also the first chunk's barrier. Every block of the cluster has the
+  // same keypoints and comes to the same decision, so with none ok (or an
+  // empty level window) the whole cluster leaves without a cluster.sync.
+  if (!__syncthreads_or(ok[0] || ok[1]) || lvl_max < lvl_min) {
+    const int r = blockIdx.y * K1_ROWS + rank * K1_MERGE_ROWS + tid;
+    if (tid < K1_MERGE_ROWS && r < n) {
+      out_idx[r] = 0;
+      out_best[r] = kInvalid;
+      out_second[r] = kInvalid;
+    }
+    return;
   }
 
   uint32_t b1[2] = {kKeyNone, kKeyNone}, b2[2] = {kKeyNone, kKeyNone};
-  for (int c0 = lo; c0 < hi; c0 += K1_CH) {
-    const int cnt = min(K1_CH, hi - c0);
-    const int staged = (cnt + K1_SPLIT - 1) / K1_SPLIT * K1_SPLIT;
-    if (c0 != lo) {
+  for (int t0 = 0; t0 < my_tiles; t0 += K1_CT) {
+    const int cnt = min(K1_CT, my_tiles - t0);
+    if (t0 != 0) {
       __syncthreads();  // the previous chunk is no longer read
-      k1_stage(s_desc, s_geo, s_key, lm_desc, lm_uv, lm_radius, lm_lvl,
-               lm_ok, c0, cnt);
+      k1_stage(s_desc, s_geo, s_key, s_live, lm_desc, lm_uv, lm_radius,
+               lm_lvl, lm_ok, m, rank, t0, cnt);
+      __syncthreads();
     }
-    __syncthreads();
-    const int tiles = staged / (8 * K1_HALVES);
-    for (int tile = half * tiles; tile < (half + 1) * tiles; ++tile) {
+    for (int tile = half; tile < cnt; tile += K1_HALVES) {
+      if (!s_live[tile]) continue;  // no ok landmark: nothing is allowed
       const int j0 = tile * 8;
       int acc[4];
       mma_and_popc(acc, a, *(const uint2*)&s_desc[j0 + g][2 * t]);
@@ -253,20 +295,19 @@ gated_match_kernel(const uint32_t* __restrict__ kp_desc,
       for (int e = 0; e < 2; ++e) {
         const int j = j0 + 2 * t + e;
         const float4 geo = s_geo[j];
-        const uint2 key = s_key[j];
+        const uint32_t key = s_key[j];
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const float du = __fsub_rn(x[i], geo.x);
           const float dv = __fsub_rn(xy[i].y, geo.y);
           const float dd = __fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv));
-          const int dl = lvl[i] - __float_as_int(geo.w);
-          const bool allowed = dd <= geo.z && dl >= lvl_min && dl <= lvl_max;
-          // ((pa + pb - 2 popc(a & b)) << 16) + m
-          const uint32_t k =
-              allowed ? pa[i] + key.x - ((uint32_t)acc[2 * i + e] << 17)
-                      : key.y;
-          b2[i] = min(b2[i], max(b1[i], k));
-          b1[i] = min(b1[i], k);
+          const uint32_t dl = kl[i] - (uint32_t)__float_as_int(geo.w);
+          // ((kKeyBias + popc(b) - 2 popc(a & b)) << 16) + m
+          const uint32_t k = key - ((uint32_t)acc[2 * i + e] << 17);
+          if (dd <= geo.z && dl <= range) {
+            b2[i] = min(b2[i], max(b1[i], k));
+            b1[i] = min(b1[i], k);
+          }
         }
       }
     }
@@ -288,25 +329,25 @@ gated_match_kernel(const uint32_t* __restrict__ kp_desc,
   }
   cluster.sync();
 
-  // block `rank` merges K1_ROWS / K1_S rows over the cluster's
-  // K1_S * K1_HALVES partial results, one result per lane
-  constexpr int kParts = K1_S * K1_HALVES;
-  constexpr int kMergeRows = K1_ROWS / K1_S;
-  if (tid < kMergeRows * kParts) {
-    const int row = rank * kMergeRows + tid / kParts, part = tid % kParts;
+  // block `rank` merges K1_MERGE_ROWS rows over the cluster's K1_PARTS
+  // partial results, one result per lane, and adds the row's popc back
+  if (tid < K1_MERGE_ROWS * K1_PARTS) {
+    const int row = rank * K1_MERGE_ROWS + tid / K1_PARTS;
+    const int part = tid % K1_PARTS;
     const uint2* src = cluster.map_shared_rank(&s_top[0][0], part / K1_HALVES);
     uint2 v = src[(part % K1_HALVES) * K1_ROWS + row];
 #pragma unroll
-    for (int off = kParts / 2; off > 0; off >>= 1) {
+    for (int off = K1_PARTS / 2; off > 0; off >>= 1) {
       const uint32_t o1 = __shfl_xor_sync(0xffffffffu, v.x, off);
       const uint32_t o2 = __shfl_xor_sync(0xffffffffu, v.y, off);
       top2_merge(v.x, v.y, o1, o2);
     }
     const int r = blockIdx.y * K1_ROWS + row;
     if (part == 0 && r < n) {
+      const int base = s_pa[row] - (int)kKeyBias;
       out_idx[r] = v.x == kKeyNone ? 0 : (int32_t)(v.x & 0xFFFFu);
-      out_best[r] = (int32_t)(v.x >> 16);
-      out_second[r] = (int32_t)(v.y >> 16);
+      out_best[r] = v.x == kKeyNone ? kInvalid : (int)(v.x >> 16) + base;
+      out_second[r] = v.y == kKeyNone ? kInvalid : (int)(v.y >> 16) + base;
     }
   }
   cluster.sync();  // no block exits while another reads its shared memory
@@ -435,10 +476,6 @@ int slam_gated_match(const void* kp_desc, const void* kp_xy,
                      void* out_second, int n, int m, int lvl_min,
                      int lvl_max, void* stream) {
   if (n > 0) {
-    // each block of a cluster takes `span` landmarks (a multiple of
-    // K1_SPLIT, so every warp sees whole 8-landmark tiles)
-    const int per = (m + K1_S - 1) / K1_S;
-    const int span = (per + K1_SPLIT - 1) / K1_SPLIT * K1_SPLIT;
     const dim3 grid(K1_S, (n + K1_ROWS - 1) / K1_ROWS);
     gated_match_kernel<<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)kp_desc, (const float*)kp_xy,
@@ -446,7 +483,7 @@ int slam_gated_match(const void* kp_desc, const void* kp_xy,
         (const uint32_t*)lm_desc, (const float*)lm_uv,
         (const float*)lm_radius, (const int32_t*)lm_lvl,
         (const uint8_t*)lm_ok, (int32_t*)out_idx, (int32_t*)out_best,
-        (int32_t*)out_second, n, m, lvl_min, lvl_max, span);
+        (int32_t*)out_second, n, m, lvl_min, lvl_max);
   }
   return (int)cudaGetLastError();
 }

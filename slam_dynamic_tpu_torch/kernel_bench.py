@@ -1,15 +1,15 @@
 """Device-side timing and least-time bounds of the port's CUDA kernels.
 
-    python -m slam_dynamic_tpu_torch.kernel_bench --old-source OLD.cu \
-        [--old-takes-r2]
+    python -m slam_dynamic_tpu_torch.kernel_bench --old-source OLD.cu
 
 builds ``OLD.cu`` (another revision of ``csrc/kernels.cu`` with the same
-C entry points; ``--old-takes-r2`` when its K1 takes the squared radius,
-as revisions did before K1 squared it itself) beside this checkout's
-kernels and times K1 and K2 of both on one card, in turns (old, new, new,
-old), at the main path's 2048 x 2048. It checks that both give the same
-results and prints one JSON line. ``chip_smoke.py`` takes its kernel timings and bounds from the
-helpers here. Needs a CUDA card.
+C entry points) beside this checkout's kernels and times K1 and K2 of both
+on one card, in turns (old, new, new, old): K1 on a random 2048 x 2048
+problem and on the inputs of every K1 call of ``PATH_FRAMES`` frames of
+``System.track_rgbd`` on the bench world, K2 at the main path's 2048 x
+2048. It checks that both give the same results and prints one JSON line.
+``chip_smoke.py`` takes its kernel timings and bounds from the helpers
+here. Needs a CUDA card.
 
 Timing is on the device: the launches are captured in a CUDA graph and
 CUDA events bracket its replays, so the host's per-call work (argument
@@ -18,6 +18,7 @@ checks, allocations, the ctypes call) is not in the time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 from pathlib import Path
@@ -25,30 +26,38 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .ops import gated_match as gm
 from .ops import kernels
 
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 at 3.35 TB/s; int8
-# tensor cores at 1,979 TOP/s (the binary tensor-core rate that the kernels
-# use is not published, so distances are bounded at the int8 rate of the
-# bipolar formulation). CUDA cores at the 1.98 GHz boost clock on 132 SMs:
-# fp32 add and multiply at 128 per clock per SM, 32-bit integer add,
-# compare, select, min and max at 64 (CUDA C++ Programming Guide,
-# arithmetic instruction throughput, compute capability 9.0).
+# tensor cores at 1,979 TOP/s. The kernels take their distances from the
+# binary tensor cores, whose rate is not published; the int8 rate of the
+# bipolar formulation stands in for it, and at either rate the distances
+# bound neither kernel. CUDA cores at the 1.98 GHz boost clock on 132 SMs:
+# fp32 add, multiply and compare at 128 per clock per SM, 32-bit integer
+# add, multiply-add, compare, min and max at 64 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0).
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 132 * 128 * 1.98e9
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
-# K1's CUDA-core operations per allowed pair (both ok flags set), 15 in
-# all. fp32: the radius test's 2 subtract, 2 multiply, 1 add. 32-bit
-# integer and compare: the radius compare 1, level window 3 (1 subtract,
-# 2 compares), candidate key 3 (add, shift-add, select), top-2 update 3
-# (min, max, min). A pair with a flag clear needs none.
-K1_FP32_OPS_PER_PAIR = 5
-K1_INT32_OPS_PER_PAIR = 10
+# K1's CUDA-core operations per pair with both ok flags set, the fewest
+# the function needs. fp32, 6: the radius test's 2 subtract, 2 multiply,
+# 1 add (rounded one by one, as the plain version) and its compare.
+# Integer, 6: the level window 2 (subtract the landmark's level from the
+# row's kp_lvl - lvl_min, one unsigned compare against lvl_max - lvl_min),
+# the candidate key 1 (one multiply-add of the landmark's precomputed
+# key and popc(a & b); the row's own popcount is constant along the row,
+# so it is added once per row), the top-2 update 3 (min, max, min). The
+# gates combine as predicates of the compares. A pair with a flag clear
+# needs none.
+K1_FP32_OPS_PER_PAIR = 6
+K1_INT32_OPS_PER_PAIR = 6
 
 REPS = 20       # launches captured in one graph
 REPLAYS = 10    # graph replays between the events
+PATH_FRAMES = 20  # frames of the System run whose K1 inputs are kept
 
 
 def device_ms(fn, reps: int = REPS, replays: int = REPLAYS) -> float:
@@ -76,6 +85,15 @@ def device_ms(fn, reps: int = REPS, replays: int = REPLAYS) -> float:
     return t0.elapsed_time(t1) / (reps * replays)
 
 
+def calls_ms(fn, calls) -> float:
+    """Device time per call of ``fn(*args, lvl_min=, lvl_max=)`` over a
+    list of recorded ``(args, lvl_min, lvl_max)``."""
+    def run():
+        for args, lo, hi in calls:
+            fn(*args, lvl_min=lo, lvl_max=hi)
+    return device_ms(run, reps=max(1, REPS // len(calls))) / len(calls)
+
+
 def bound(bytes_moved: float, tc_ops: float = 0.0, fp32_ops: float = 0.0,
           int32_ops: float = 0.0):
     """(ms, "bytes" | "operations"): the larger of the bytes over the
@@ -89,7 +107,8 @@ def bound(bytes_moved: float, tc_ops: float = 0.0, fp32_ops: float = 0.0,
 
 
 def k1_bound(args):
-    """Least time of K1 on these inputs (gated_match's argument list)."""
+    """Least time of K1 on these inputs (gated_match's argument list):
+    only the pairs with both ok flags set need a distance and the gates."""
     n, m = args[0].shape[0], args[4].shape[0]
     pairs = int(args[3].sum()) * int(args[8].sum())
     bytes_moved = (n * (32 + 8 + 4 + 1) + m * (32 + 8 + 4 + 4 + 1)
@@ -99,22 +118,35 @@ def k1_bound(args):
                  int32_ops=K1_INT32_OPS_PER_PAIR * pairs)
 
 
+def k1_calls_bound(calls):
+    """(mean least time per call, what bounds most calls) over recorded
+    K1 calls."""
+    bounds = [k1_bound(args) for args, _, _ in calls]
+    by = max(("bytes", "operations"),
+             key=lambda b: sum(x[1] == b for x in bounds))
+    return sum(x[0] for x in bounds) / len(bounds), by
+
+
 def k2_bound(n: int, m: int):
     """Least time of K2 at [n, 8] x [m, 8]: every pair's distance is
     needed, and the int32 output written once."""
     return bound(n * 32 + m * 32 + n * m * 4, tc_ops=2 * 256 * n * m)
 
 
-def k1_problem(rng, n, m, dup_frac, dev):
-    """Random gated-match inputs at the main path's types; duplicated
-    descriptors force distance ties."""
+def k1_problem(rng, n, m, dup_frac=0.0, dev=None):
+    """Random gated-match inputs at the main path's types (descriptors as
+    int32 bit views), as numpy arrays, or as tensors on ``dev``.
+    Duplicated descriptors (``dup_frac`` of the landmarks) force distance
+    ties, and up to that many keypoints have an exact copy among the
+    landmarks."""
     kp_desc = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
     lm_desc = rng.integers(0, 2**32, (m, 8), dtype=np.uint32)
-    if dup_frac:
+    if dup_frac and m:
         k = max(int(m * dup_frac), 1)
         lm_desc[rng.integers(0, m, k)] = lm_desc[rng.integers(0, m, k)]
-        lm_desc[: k // 2] = kp_desc[: k // 2]
-    arrays = (kp_desc.view(np.int32),
+        h = min(k // 2, n)
+        lm_desc[:h] = kp_desc[:h]
+    arrays = [kp_desc.view(np.int32),
               rng.uniform(0, 640, (n, 2)).astype(np.float32),
               rng.integers(0, 8, n).astype(np.int32),
               rng.uniform(size=n) < 0.9,
@@ -122,7 +154,9 @@ def k1_problem(rng, n, m, dup_frac, dev):
               rng.uniform(-50, 690, (m, 2)).astype(np.float32),
               rng.uniform(5, 400, m).astype(np.float32),
               rng.integers(0, 8, m).astype(np.int32),
-              rng.uniform(size=m) < 0.9)
+              rng.uniform(size=m) < 0.9]
+    if dev is None:
+        return arrays
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in arrays]
 
@@ -133,59 +167,120 @@ def desc_pair(rng, n, m, dev):
                              .view(np.int32)).to(dev) for r in (n, m)]
 
 
-def raw_calls(lib, k1_args, r2, a, b):
-    """K1 and K2 of one library as bare launches into preallocated
-    outputs, each returning its list of outputs. The library of
-    ``csrc/kernels.cu`` squares the radius itself; an older one takes r^2
-    (``r2``)."""
-    dev = a.device
-    n, m = k1_args[0].shape[0], k1_args[4].shape[0]
-    outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)]
-    d = torch.empty((a.shape[0], b.shape[0]), dtype=torch.int32, device=dev)
-    ptrs = [t.data_ptr() for t in k1_args]
-    if r2 is not None:
-        ptrs[6] = r2.data_ptr()
+@contextlib.contextmanager
+def recording_k1(calls: list):
+    """Within the block, the tracker's K1 calls append a copy of their
+    inputs to ``calls`` as ``(args, lvl_min, lvl_max)``; the calls
+    themselves run as they would."""
+    from .frontend import fused, tracking_ops
 
-    def k1():
-        kernels.check(lib.slam_gated_match(
-            *ptrs, *[o.data_ptr() for o in outs], n, m, -1, 1,
-            kernels.stream_handle(dev)), "slam_gated_match")
-        return outs
+    def record(*args, lvl_min=-1, lvl_max=1):
+        kept = [a.clone(memory_format=torch.contiguous_format)
+                for a in args]
+        kept[6] = kept[6].to(torch.float32)   # as the wrapper passes it
+        calls.append((kept, lvl_min, lvl_max))
+        return gm.gated_match(*args, lvl_min=lvl_min, lvl_max=lvl_max)
 
-    def k2():
+    users = (fused, tracking_ops)
+    for mod in users:
+        mod.gated_match = record
+    try:
+        yield calls
+    finally:
+        for mod in users:
+            mod.gated_match = gm.gated_match
+
+
+def path_k1_calls(n_frames: int = PATH_FRAMES, seed: int = 0):
+    """The inputs of every K1 call of ``n_frames`` frames of
+    ``System.track_rgbd`` on the bench world."""
+    from .io.bench_world import bench_world
+    from .system import System
+
+    seq, gray8, depth16, cfg = bench_world(n_frames, seed)
+    system = System(cfg)
+    calls = []
+    with recording_k1(calls):
+        for i in range(n_frames):
+            system.track_rgbd(gray8[i], depth16[i], float(seq.timestamps[i]))
+    torch.cuda.synchronize()
+    return calls
+
+
+def ok_shares(calls):
+    """Mean shares of ok keypoints and ok landmarks over recorded calls."""
+    kp = sum(float(a[3].float().mean()) for a, _, _ in calls) / len(calls)
+    lm = sum(float(a[8].float().mean()) for a, _, _ in calls) / len(calls)
+    return kp, lm
+
+
+def k1_raw(lib, calls):
+    """K1 of one library as bare launches into preallocated outputs, one
+    per recorded call; returns a function that launches them all and
+    returns the outputs."""
+    jobs = []
+    for args, lo, hi in calls:
+        n, m = args[0].shape[0], args[4].shape[0]
+        outs = [torch.empty(n, dtype=torch.int32, device=args[0].device)
+                for _ in range(3)]
+        jobs.append(([t.data_ptr() for t in args], outs, n, m, lo, hi))
+    dev = calls[0][0][0].device
+
+    def run():
+        stream = kernels.stream_handle(dev)    # the capturing stream
+        for ptrs, outs, n, m, lo, hi in jobs:
+            kernels.check(lib.slam_gated_match(
+                *ptrs, *[o.data_ptr() for o in outs], n, m, lo, hi, stream),
+                "slam_gated_match")
+        return [o for job in jobs for o in job[1]]
+    return run
+
+
+def k2_raw(lib, a, b):
+    """K2 of one library as a bare launch into a preallocated output."""
+    d = torch.empty((a.shape[0], b.shape[0]), dtype=torch.int32,
+                    device=a.device)
+
+    def run():
         kernels.check(lib.slam_hamming_matrix(
             a.data_ptr(), b.data_ptr(), d.data_ptr(), a.shape[0], b.shape[0],
-            kernels.stream_handle(dev)), "slam_hamming_matrix")
+            kernels.stream_handle(a.device)), "slam_hamming_matrix")
         return [d]
+    return run
 
-    return k1, k2
 
-
-def compare(old_source: Path, old_takes_r2: bool) -> dict:
+def compare(old_source: Path) -> dict:
     """Time K1 and K2 of ``old_source`` and of this checkout in turns."""
     dev = torch.device("cuda")
     new_lib = kernels.lib()
     old_lib = kernels.load(kernels.build(old_source))
     rng = np.random.default_rng(0)
     n = m = 2048
-    args = k1_problem(rng, n, m, 0.3, dev)
-    r2 = (args[6] ** 2).contiguous() if old_takes_r2 else None
+    random_calls = [(k1_problem(rng, n, m, 0.3, dev), -1, 1)]
+    path_calls = path_k1_calls()
     a, b = desc_pair(rng, n, m, dev)
-    old_k1, old_k2 = raw_calls(old_lib, args, r2, a, b)
-    new_k1, new_k2 = raw_calls(new_lib, args, None, a, b)
-    for name, old, new in (("gated_match", old_k1, new_k1),
-                           ("hamming_matrix", old_k2, new_k2)):
+    cases = {"gated_match_random": (k1_raw(old_lib, random_calls),
+                                    k1_raw(new_lib, random_calls), 1),
+             "gated_match_path": (k1_raw(old_lib, path_calls),
+                                  k1_raw(new_lib, path_calls),
+                                  len(path_calls)),
+             "hamming_matrix": (k2_raw(old_lib, a, b), k2_raw(new_lib, a, b),
+                                1)}
+    for name, (old, new, _) in cases.items():
         ro, rn = [t.clone() for t in old()], [t.clone() for t in new()]
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(ro, rn)):
             raise AssertionError(f"{name}: old and new kernels disagree")
     # the floor of a launch timed this way: a one-element PyTorch add
     one = torch.zeros(1, device=dev)
+    kp_ok, lm_ok = ok_shares(path_calls)
     result = {"device": torch.cuda.get_device_name(0), "n": n, "m": m,
+              "path_calls": len(path_calls), "path_kp_ok": kp_ok,
+              "path_lm_ok": lm_ok,
               "launch_floor_ms": device_ms(lambda: one.add_(1))}
-    for name, old, new in (("gated_match", old_k1, new_k1),
-                           ("hamming_matrix", old_k2, new_k2)):
-        turns = [device_ms(f) for f in (old, new, new, old)]
+    for name, (old, new, per) in cases.items():
+        reps = max(1, REPS // per)
+        turns = [device_ms(f, reps=reps) / per for f in (old, new, new, old)]
         old_ms, new_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         result[name] = {"old_ms": [turns[0], turns[3]],
                         "new_ms": [turns[1], turns[2]],
@@ -197,13 +292,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--old-source", type=Path, required=True,
                         help="another revision of csrc/kernels.cu")
-    parser.add_argument("--old-takes-r2", action="store_true",
-                        help="its K1 takes the squared landmark radius")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_bench: needs a CUDA card", file=sys.stderr)
         return 1
-    print(json.dumps(compare(args.old_source, args.old_takes_r2)), flush=True)
+    print(json.dumps(compare(args.old_source)), flush=True)
     return 0
 
 

@@ -25,9 +25,8 @@ from .hamming import INVALID, hamming_matrix_plain, top2_min
 # Launches of kernel K1 (one per CUDA call of gated_match).
 launches = 0
 
-# K1 packs a landmark index into the low 16 bits of its candidate keys;
-# 0xFFFF marks padding, so the last usable index is 0xFFFE.
-MAX_LANDMARKS = 0xFFFF
+# K1 packs a landmark index into the low 16 bits of its candidate keys.
+MAX_LANDMARKS = 1 << 16
 
 
 def accept_match(best, second, max_dist, ratio):

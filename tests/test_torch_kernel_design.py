@@ -9,8 +9,8 @@ on the CPU where the kernels themselves cannot run:
   interpret mode, forced ties included;
 - the plain version's edge cases with fewer than two landmarks, against
   the Pallas kernel;
-- the least-time bounds that chip_smoke.py reports, and that every
-  variant of kernel_variants.py still applies to the kernel source.
+- the least-time bounds that chip_smoke.py reports, the shared problem
+  generator at its edges, and the recording of K1's inputs on the path.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -19,13 +19,16 @@ import torch
 
 from slam_dynamic_tpu.ops.pallas_match import gated_match_pallas
 from slam_dynamic_tpu_torch import kernel_bench as kb
-from slam_dynamic_tpu_torch import kernel_variants as kv
+from slam_dynamic_tpu_torch.frontend import fused, tracking_ops
 from slam_dynamic_tpu_torch.ops import gated_match as gm
 from slam_dynamic_tpu_torch.ops import hamming as hm
-from torch_port_util import gated_match_problem as _problem, to_t
+from torch_port_util import to_t
 
+_problem = kb.k1_problem
 INVALID = 1 << 15
-KEY_NONE = (INVALID << 16) | 0xFFFF     # padding: above every real key
+KEY_NONE = 0xFFFFFFFF    # no allowed pair: above every candidate key
+KEY_BIAS = 256           # keeps popc(b) - 2 popc(a & b) non-negative
+U32 = 0xFFFFFFFF
 
 
 def _and_popc(a, b):
@@ -69,22 +72,27 @@ def test_and_popc_identity_at_edge_descriptors(seed):
 
 def _keys(kp_desc, kp_xy, kp_level, kp_ok, lm_desc, lm_uv, lm_radius,
           lm_lvl, lm_ok, lvl_min, lvl_max):
-    """[N, M] int64 keys as the kernel forms them: a gated-out keypoint has
+    """[N, M] int64 keys as the kernel forms them (uint32 arithmetic),
+    KEY_NONE where a pair is not allowed: a gated-out keypoint has
     x = NaN, a gated-out landmark r^2 = -inf, so the radius test alone
-    rejects them."""
+    rejects them; the level window is one unsigned compare; a key holds
+    the distance less the row's popc(a), plus KEY_BIAS."""
     m = lm_desc.shape[0]
     x = torch.where(kp_ok, kp_xy[:, 0], torch.tensor(float("nan")))
     r2 = torch.where(lm_ok, lm_radius * lm_radius,
                      torch.tensor(float("-inf")))
     du = x[:, None] - lm_uv[None, :, 0]
     dv = kp_xy[:, None, 1] - lm_uv[None, :, 1]
-    dl = kp_level[:, None] - lm_lvl[None, :]
-    allowed = (du * du + dv * dv <= r2[None, :]) & (dl >= lvl_min) \
-        & (dl <= lvl_max)
-    dist = (_popc_rows(kp_desc)[:, None] + _popc_rows(lm_desc)[None, :]
-            - 2 * _and_popc(kp_desc, lm_desc)).long()
-    cols = torch.arange(m, dtype=torch.int64)
-    return torch.where(allowed, (dist << 16) + cols, (INVALID << 16) + cols)
+    kl = (kp_level.long() - lvl_min) & U32
+    dl = (kl[:, None] - lm_lvl.long()[None, :]) & U32
+    allowed = (du * du + dv * dv <= r2[None, :]) \
+        & (dl <= ((lvl_max - lvl_min) & U32))
+    if lvl_max < lvl_min:           # the kernel leaves before its loop
+        allowed &= False
+    key = (((KEY_BIAS + _popc_rows(lm_desc).long()) << 16)
+           + torch.arange(m, dtype=torch.int64))[None, :]
+    keys = (key - (_and_popc(kp_desc, lm_desc).long() << 17)) & U32
+    return torch.where(allowed, keys, KEY_NONE)
 
 
 def _top2(keys):
@@ -101,23 +109,29 @@ def _merge(p, q):
 
 
 def k1_emulate(args, lvl_min, lvl_max, rng):
-    """K1's reduction: the landmark range cut at random points into parts
-    (some empty), a top-2 of keys per part, the parts merged pairwise in a
-    random order; then decoded as the kernel decodes."""
+    """K1's reduction: the landmarks dealt out to parts (some empty), in
+    contiguous runs or 8-landmark tile by tile as the kernel deals them to
+    its blocks and warps, a top-2 of keys per part, the parts merged
+    pairwise in a random order; then decoded as the kernel decodes."""
     keys = _keys(*args, lvl_min, lvl_max)
     m = keys.shape[1]
     n_parts = int(rng.integers(1, 13))
-    cuts = np.sort(rng.integers(0, m + 1, n_parts - 1))
-    bounds = [0, *cuts.tolist(), m]
-    parts = [_top2(keys[:, lo:hi]) for lo, hi in zip(bounds, bounds[1:])]
+    if rng.integers(2):
+        part = np.sort(rng.integers(0, n_parts, m))
+    else:
+        part = np.repeat(rng.integers(0, n_parts, (m + 7) // 8), 8)[:m]
+    parts = [_top2(keys[:, torch.from_numpy(part == p)])
+             for p in range(n_parts)]
     while len(parts) > 1:
         i, j = sorted(rng.choice(len(parts), 2, replace=False).tolist())
         q = parts.pop(j)
         parts[i] = _merge(parts[i], q)
     b1, b2 = parts[0]
+    base = _popc_rows(args[0]).long() - KEY_BIAS
     idx = torch.where(b1 == KEY_NONE, 0, b1 & 0xFFFF)
-    return (idx.to(torch.int32), (b1 >> 16).to(torch.int32),
-            (b2 >> 16).to(torch.int32))
+    best = torch.where(b1 == KEY_NONE, INVALID, (b1 >> 16) + base)
+    second = torch.where(b2 == KEY_NONE, INVALID, (b2 >> 16) + base)
+    return idx.to(torch.int32), best.to(torch.int32), second.to(torch.int32)
 
 
 def _torch(args):
@@ -198,7 +212,23 @@ def test_k1_plain_fewer_than_two_landmarks_equals_pallas(m):
         assert int(got[1][0]) == 0 and int(got[2][0]) == INVALID
 
 
-# ---- bounds and variants (computed from shapes; no card needed) --------
+def test_k1_emulation_level_window_wraps_as_plain():
+    """The one-compare level window agrees with the plain version's two
+    compares on int32 levels whose difference wraps around, and an empty
+    window allows nothing."""
+    rng = np.random.default_rng(12)
+    args = _problem(rng, 48, 160)
+    args[2] = rng.integers(-2**31, 2**31, 48).astype(np.int32)
+    args[7] = rng.integers(-2**31, 2**31, 160).astype(np.int32)
+    args[7][:80] = args[2][rng.integers(0, 48, 80)] - rng.integers(-2, 3, 80)
+    args[6] = np.full(160, 1e4, np.float32)
+    for lo, hi in [(-1, 1), (-2**31, 2**31 - 1), (2, -2), (0, 0)]:
+        ref = gm.gated_match_plain(*_torch(args), lvl_min=lo, lvl_max=hi)
+        _assert_same(k1_emulate(_torch(args), lo, hi, rng), ref)
+    assert (ref[1] < INVALID).any()
+
+
+# ---- bounds, the problem generator, the path's recorded inputs ---------
 
 
 def test_k2_bound_is_the_output_write():
@@ -208,19 +238,51 @@ def test_k2_bound_is_the_output_write():
                                / 3.35e12 * 1e3)
 
 
-def test_k1_bound_counts_allowed_pairs_on_the_integer_pipe():
+def test_k1_bound_counts_ok_pairs_on_the_integer_pipe():
     rng = np.random.default_rng(0)
     args = kb.k1_problem(rng, 2048, 2048, 0.3, "cpu")
     ms, by = kb.k1_bound(args)
     pairs = int(args[3].sum()) * int(args[8].sum())
     assert by == "operations"
-    assert ms == pytest.approx(10 * pairs / (132 * 64 * 1.98e9) * 1e3)
+    assert ms == pytest.approx(6 * pairs / (132 * 64 * 1.98e9) * 1e3)
+    half = [a.clone() for a in args]
+    half[3][1024:] = False                   # padding at the tail
+    mean, _ = kb.k1_calls_bound([(args, -1, 1), (half, -1, 1)])
+    assert mean == pytest.approx((ms + kb.k1_bound(half)[0]) / 2)
+    assert kb.k1_bound(half)[0] < ms
     args[3] = torch.zeros_like(args[3])      # nothing to compare: bytes
     assert kb.k1_bound(args)[1] == "bytes"
 
 
-@pytest.mark.parametrize("name", sorted({**kv.SHAPES, **kv.ABLATIONS}))
-def test_kernel_variant_applies_to_source(name):
-    edits = {**kv.SHAPES, **kv.ABLATIONS}[name]
-    text = kv.variant_source(name, edits)
-    assert all(new in text for _, new in edits)
+@pytest.mark.parametrize("n,m,dup", [(5, 0, 0.3), (3, 64, 0.9), (1, 1, 0.5),
+                                     (64, 64, 0.0)])
+def test_k1_problem_shapes_and_planted_copies(n, m, dup):
+    args = kb.k1_problem(np.random.default_rng(n + m), n, m, dup)
+    assert [a.shape[0] for a in args] == [n] * 4 + [m] * 5
+    assert args[0].dtype == args[4].dtype == np.int32
+    h = min(max(int(m * dup), 1) // 2, n) if dup and m else 0
+    np.testing.assert_array_equal(args[4][:h], args[0][:h])
+    on_cpu = kb.k1_problem(np.random.default_rng(n + m), n, m, dup, "cpu")
+    for a, t in zip(args, on_cpu):
+        np.testing.assert_array_equal(t.numpy(), a)
+
+
+def test_recording_k1_keeps_the_tracker_calls_inputs():
+    """The tracker's K1 calls inside the block are kept and run as they
+    would; outside it the tracker calls K1 directly again."""
+    rng = np.random.default_rng(6)
+    first, second = _torch(_problem(rng, 30, 70)), _torch(_problem(rng, 9, 5))
+    calls = []
+    with kb.recording_k1(calls):
+        got = fused.gated_match(*first)
+        tracking_ops.gated_match(*second, lvl_min=0, lvl_max=2)
+    assert fused.gated_match is gm.gated_match
+    assert tracking_ops.gated_match is gm.gated_match
+    _assert_same(got, gm.gated_match_plain(*first))
+    assert [(lo, hi) for _, lo, hi in calls] == [(-1, 1), (0, 2)]
+    for kept, args in zip([c[0] for c in calls], [first, second]):
+        assert all(torch.equal(k, a) for k, a in zip(kept, args))
+    kp, lm = kb.ok_shares(calls)
+    assert kp == pytest.approx((float(first[3].float().mean())
+                                + float(second[3].float().mean())) / 2)
+    assert 0 < lm <= 1

@@ -9,9 +9,9 @@ import torch
 
 from slam_dynamic_tpu.ops.pallas_hamming import hamming_matrix_pallas
 from slam_dynamic_tpu.ops.pallas_match import gated_match_pallas
+from slam_dynamic_tpu_torch.kernel_bench import k1_problem as _problem
 from slam_dynamic_tpu_torch.ops import gated_match as gm
 from slam_dynamic_tpu_torch.ops import hamming as hm
-from torch_port_util import gated_match_problem as _problem
 
 INVALID = 1 << 15
 

@@ -11,29 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from slam_dynamic_tpu_torch.kernel_bench import k1_problem as _problem
 from slam_dynamic_tpu_torch.ops import gated_match as gm
 from slam_dynamic_tpu_torch.ops import hamming as hm
 
 INVALID = 1 << 15
-
-
-def _problem(rng, n, m, dup_frac=0.0):
-    kp_desc = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
-    lm_desc = rng.integers(0, 2**32, (m, 8), dtype=np.uint32)
-    if dup_frac and m:   # duplicated descriptors force distance ties
-        k = max(int(m * dup_frac), 1)
-        lm_desc[rng.integers(0, m, k)] = lm_desc[rng.integers(0, m, k)]
-        h = min(k // 2, n)
-        lm_desc[:h] = kp_desc[:h]
-    return [kp_desc.view(np.int32),
-            rng.uniform(0, 640, (n, 2)).astype(np.float32),
-            rng.integers(0, 8, n).astype(np.int32),
-            rng.uniform(size=n) < 0.9,
-            lm_desc.view(np.int32),
-            rng.uniform(-50, 690, (m, 2)).astype(np.float32),
-            rng.uniform(5, 400, m).astype(np.float32),
-            rng.integers(0, 8, m).astype(np.int32),
-            rng.uniform(size=m) < 0.9]
 
 
 def _torch(args, device):
@@ -161,20 +143,16 @@ def test_kernels_edge_descriptors_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [2048, 4097])
 def test_k1_kernel_tie_across_splits_on_card(cuda_device, m):
-    """A keypoint's exact copy planted at two landmarks, lo < hi: in
-    different blocks of the landmark split, in the two warps of one block,
-    in neighbouring 8-landmark tiles and in neighbouring columns. The lower
-    index must win."""
+    """A keypoint's exact copy planted at two landmarks, lo < hi: in one
+    8-landmark tile (1 apart), in neighbouring tiles, which different
+    blocks of the cluster take (8), in the two warps of one block (64), in
+    one warp (128) and far apart. The lower index must win."""
     n = 256
     rng = np.random.default_rng(m)
     args = _problem(rng, n, m)
-    q = n // 4
     lo = rng.integers(0, m // 2 - 256, n)
-    hi = rng.integers(m // 2, m, n)                     # another block
-    lo[q:2 * q] -= lo[q:2 * q] % 256                    # first warp's half
-    hi[q:2 * q] = lo[q:2 * q] + 128 + rng.integers(0, 128, q)
-    hi[2 * q:3 * q] = lo[2 * q:3 * q] + 8               # next tile
-    hi[3 * q:] = lo[3 * q:] + 1                         # next column
+    gap = np.array([1, 8, 64, 128, 0])[np.arange(n) % 5]
+    hi = np.where(gap > 0, lo + gap, rng.integers(m // 2, m, n))
     kp, lm = args[0].copy(), args[4].copy()
     for r in range(n):
         lm[hi[r]] = kp[r]
@@ -226,3 +204,34 @@ def test_kernel_wrapper_rejects_misaligned_descriptors(cuda_device):
     shifted = flat[1:33].view(4, 8)          # 4-byte aligned only
     with pytest.raises(ValueError):
         hm.hamming_matrix(shifted, shifted)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["keypoint_tail", "keypoint_block",
+                                  "landmark_tail", "landmark_tiles", "both"])
+def test_k1_kernel_skips_gated_out_work_on_card(cuda_device, case):
+    """Inputs shaped like the path's: keypoints gated out at the tail (the
+    padding of a frame's keypoints) or in one whole block of 32, landmarks
+    gated out at the tail or in whole 8-landmark tiles, with single ok
+    landmarks left in some tiles. The skipped work must not change a bit."""
+    rng = np.random.default_rng(len(case))
+    args = _problem(rng, 2048, 2048, 0.2)
+    if case in ("keypoint_tail", "both"):
+        args[3][1001:] = False
+    if case == "keypoint_block":
+        args[3][64:96] = False
+    if case in ("landmark_tail", "both"):
+        args[8][1500:] = False
+    if case in ("landmark_tiles", "both"):
+        tiles = args[8][:1496].reshape(-1, 8)
+        off = rng.uniform(size=len(tiles)) < 0.6
+        tiles[off] = False
+        single = off & (rng.uniform(size=len(tiles)) < 0.3)
+        tiles[single, rng.integers(0, 8, int(single.sum()))] = True
+    targs = _torch(args, cuda_device)
+    _check_k1(targs)
+    # radius and level gates open: the ok flags alone decide
+    targs[2] = torch.zeros_like(targs[2])
+    targs[6] = torch.full_like(targs[6], 1e4)
+    targs[7] = torch.zeros_like(targs[7])
+    _check_k1(targs)

@@ -77,22 +77,3 @@ def f32(v):
 
 def asdict(cfg):
     return dataclasses.asdict(cfg)
-
-
-def gated_match_problem(rng, n, m, dup_frac=0.0):
-    """The cases of tests/test_pallas_match.py, as numpy arrays."""
-    kp_desc = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
-    lm_desc = rng.integers(0, 2**32, (m, 8), dtype=np.uint32)
-    if dup_frac:   # duplicated descriptors force distance ties
-        k = max(int(m * dup_frac), 1)
-        lm_desc[rng.integers(0, m, k)] = lm_desc[rng.integers(0, m, k)]
-        lm_desc[: k // 2] = kp_desc[: k // 2]
-    kp_xy = rng.uniform(0, 640, (n, 2)).astype(np.float32)
-    lm_uv = rng.uniform(-50, 690, (m, 2)).astype(np.float32)
-    kp_level = rng.integers(0, 8, n).astype(np.int32)
-    lm_lvl = rng.integers(0, 8, m).astype(np.int32)
-    lm_radius = rng.uniform(5, 400, m).astype(np.float32)
-    kp_ok = rng.uniform(size=n) < 0.9
-    lm_ok = rng.uniform(size=m) < 0.9
-    return [kp_desc, kp_xy, kp_level, kp_ok, lm_desc, lm_uv, lm_radius,
-            lm_lvl, lm_ok]
