@@ -19,19 +19,29 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      (bipolar int8 torch._int_mm, timed here only, never called by the
      port);
   3. System.track_rgbd on the synthetic 640x480 RGB-D world, 1000 ORB
-     features, bench capacities: fps, p50 ms per frame, keyframes, LOST
-     frames, ATE, and the launch counts of K1 and K2 over that run; the
-     inputs of its K1 calls are kept;
+     features, bench capacities, loop detection on: fps, p50 ms per
+     frame, keyframes, LOST frames, ATE, and the launch counts of K1 and
+     K2 over that run, timed bare; a second, untimed run of the same
+     frames keeps the inputs of its K1 calls;
   4. K1 on those inputs: bit-equal with its plain version on every call,
      their shares of ok keypoints and landmarks, and the device time and
-     bound per call that the kernel table reports.
+     bound per call that the kernel table reports;
+  5. the main path as ``python -m slam_dynamic_tpu_torch.bench`` runs it
+     (``bench.py``'s default): System.track_chunk on 120 frames of the
+     same world at C = 6 with one chunk in flight, loop detection on:
+     fps, chunk p50 and p90 ms, keyframes, the keyframe count, the loop
+     detector's calls and candidates, LOST frames, ATE, the launches of
+     K1 and K2 over the phase, and the vocabulary the System read; the
+     K1 calls of its first (untimed) warm chunk are held bit-equal with
+     the plain version.
 
 Kernel, plain and library times are device times (CUDA-graph replay
 between CUDA events, slam_dynamic_tpu_torch/kernel_bench.py), each beside
 the least time the card could take for the same work. It then prints the
-kernel table as one JSON line and, last, the result line. Any failed
-check raises, and a hang ends in a traceback and a nonzero exit after
-600 s.
+kernel table as one JSON line (``launches`` is phase 5's count, the main
+path's; ``launches_per_phase`` adds phase 3's) and, last, the result
+line. Any failed check raises, and a hang ends in a traceback and a
+nonzero exit after 600 s.
 """
 import faulthandler
 import json
@@ -44,6 +54,8 @@ faulthandler.dump_traceback_later(600, exit=True)
 
 SEED = 0
 N_FRAMES = 60
+CHUNK = 6
+CHUNK_FRAMES = 120
 
 
 def log(msg):
@@ -153,28 +165,35 @@ def phase_k2(dev, hm, kb):
                 bound_by=b_by, library_ms=lib_ms)
 
 
+def track_frames(system, world, n_frames):
+    """System.track_rgbd on the first n_frames: per-frame host times
+    (each ending in a synchronize), states and keyframe count."""
+    import torch
+    seq, gray8, depth16, _ = world
+    times, states, n_kf = [], [], 0
+    for i in range(n_frames):
+        t0 = time.perf_counter()
+        st = system.track_rgbd(gray8[i], depth16[i], float(seq.timestamps[i]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        states.append(st.state)
+        n_kf += int(st.is_keyframe)
+    return times, states, n_kf
+
+
 def phase_system(gm, hm, kb):
     import numpy as np
-    import torch
     from slam_dynamic_tpu_torch.io.bench_world import bench_world
     from slam_dynamic_tpu_torch.io.evo import ate_rmse
     from slam_dynamic_tpu_torch.system import System
 
-    seq, gray8, depth16, cfg = bench_world(N_FRAMES, SEED)
+    world = bench_world(N_FRAMES, SEED)
+    seq, cfg = world[0], world[3]
     system = System(cfg)                   # device defaults to cuda
     gm.launches = 0
     hm.launches = 0
-    times, states, n_kf, calls = [], [], 0, []
     t_run = time.perf_counter()
-    with kb.recording_k1(calls):
-        for i in range(N_FRAMES):
-            t0 = time.perf_counter()
-            st = system.track_rgbd(gray8[i], depth16[i],
-                                   float(seq.timestamps[i]))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            states.append(st.state)
-            n_kf += int(st.is_keyframe)
+    times, states, n_kf = track_frames(system, world, N_FRAMES)
     wall = time.perf_counter() - t_run
     launches = {"gated_match": gm.launches, "hamming_matrix": hm.launches}
     traj = system.trajectory
@@ -187,12 +206,70 @@ def phase_system(gm, hm, kb):
         f"{N_FRAMES / wall:.2f} fps, p50 {np.median(times) * 1e3:.2f} ms, "
         f"first frame {times[0] * 1e3:.1f} ms, keyframes {n_kf}, "
         f"not-OK frames {n_lost}, ATE {ate_mm:.3f} mm, launches {launches}")
+    log("  " + system.vocabulary_line())
     if min(launches.values()) <= 0 or n_lost or ate_mm >= 30.0 or n_kf < 3:
         raise AssertionError("System phase failed its checks")
+    # the K1 inputs of the same frames, on a second, untimed System
+    calls = []
+    with kb.recording_k1(calls):
+        track_frames(System(cfg), world, N_FRAMES)
     if len(calls) != launches["gated_match"]:
         raise AssertionError(f"{len(calls)} K1 calls kept, "
                              f"{launches['gated_match']} launched")
     return launches, calls
+
+
+def phase_chunk(gm, hm, kb):
+    """The main path as the port's bench runs it: 120 frames, C = 6."""
+    import numpy as np
+    import torch
+    from slam_dynamic_tpu_torch import bench
+
+    calls = []
+    gm.launches = 0
+    hm.launches = 0
+    r = bench.run(CHUNK_FRAMES, CHUNK, seed=SEED,
+                  first_warm_chunk=lambda: kb.recording_k1(calls))
+    launches = {"gated_match": gm.launches, "hamming_matrix": hm.launches}
+    system = r["system"]
+    tracker, loop = system.tracker, system.loop
+    n_kf = sum(s.is_keyframe for s in r["stats"])
+    n_lost = sum(s.state != "OK" for s in r["stats"])
+    db_rows = int(loop.db.valid.sum())
+    ms = np.sort(r["step_ms"])
+    ate_mm = r["ate_m"] * 1e3
+    log(f"phase 5 System.track_chunk 640x480 x {CHUNK_FRAMES} frames, "
+        f"C = {CHUNK}, one chunk in flight: {r['fps']:.2f} fps over "
+        f"{r['n_timed']} timed frames, chunk p50 {np.median(ms):.1f} ms, "
+        f"p90 {ms[int(len(ms) * 0.9)]:.1f} ms, keyframes {n_kf} "
+        f"(kf_seq {tracker.kf_seq}, keyframe-database rows {db_rows}), "
+        f"loop detection calls {loop.n_detect}, candidates "
+        f"{loop.n_candidates}, LOST frames {n_lost}, ATE {ate_mm:.3f} mm, "
+        f"trajectory {r['n_traj']} frames, fused dispatches "
+        f"{tracker.dispatches}, packet readbacks {tracker.packet_reads}, "
+        f"launches {launches}")
+    log("  " + system.vocabulary_line())
+    if n_lost or ate_mm >= 30.0 or min(launches.values()) <= 0:
+        raise AssertionError("chunk phase failed its checks")
+    if not n_kf == db_rows == tracker.kf_seq:
+        raise AssertionError(f"{n_kf} keyframes, {db_rows} database rows")
+    if tracker.packet_reads != tracker.dispatches:
+        raise AssertionError(f"{tracker.packet_reads} packet readbacks for "
+                             f"{tracker.dispatches} fused dispatches")
+    if len(calls) != 3 * CHUNK:
+        raise AssertionError(f"{len(calls)} K1 calls in the first chunk")
+    for args, lo, hi in calls:
+        got = gm.gated_match(*args, lvl_min=lo, lvl_max=hi)
+        ref = gm.gated_match_plain(*args, lvl_min=lo, lvl_max=hi)
+        torch.cuda.synchronize()
+        if not all(torch.equal(k, p) for k, p in zip(got, ref)):
+            raise AssertionError("K1 on the chunk's inputs: kernel != plain")
+    k1_ms = kb.calls_ms(gm.gated_match, calls)
+    b_ms, b_by = kb.k1_calls_bound(calls)
+    log(f"  K1 on the {len(calls)} calls of the first warm chunk: bit-equal "
+        f"with plain; device time per call {k1_ms:.5f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by})")
+    return launches
 
 
 def main():
@@ -227,12 +304,17 @@ def main():
     dev = torch.device("cuda")
     k1_err = phase_k1(dev, gm, kb, hm.INVALID)
     k2_row = phase_k2(dev, hm, kb)
-    launches, calls = phase_system(gm, hm, kb)
+    frame_launches, calls = phase_system(gm, hm, kb)
     rows = [phase_k1_path(gm, kb, calls, k1_err), k2_row]
+    chunk_launches = phase_chunk(gm, hm, kb)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = chunk_launches[r["name"]]
+        r["launches_per_phase"] = {
+            "track_rgbd": frame_launches[r["name"]],
+            "track_chunk": chunk_launches[r["name"]]}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_per_phase"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
-"""The fused per-frame tracking step: one call, one packed readback.
+"""The fused tracking step: one call, one packed readback.
 
 Port of ``slam_dynamic_tpu/frontend/fused.py:54-279``
 (``build_frame_data``, ``_predict_inside``, ``_mm_track``,
-``_track_stages``, ``fused_track_step``). Per frame:
+``_track_stages``, ``fused_track_step``) and of the static-scene branch
+of temporal chunking (``fused_track_chunk`` :328 through ``_chunk_body``
+:400 with ``dyn=None``). Per frame:
 
   extract -> undistort -> depth lookup -> box quarantine -> track against
   the last frame's landmarks (motion model; the narrow pass and the 2x
@@ -197,3 +199,42 @@ def fused_track_step(m: MapState, cam: Intrinsics, bounds, image, aux,
                          R_last, t_last, ref_kf, mm_radius, local_radius,
                          depth_th, scale_factor, min_inliers_track, True,
                          max_kf, max_lm, n_levels)
+
+
+def fused_track_chunk(m: MapState, cam: Intrinsics, bounds, images, auxs,
+                      boxes, box_active, last_obs_lm, R_last, t_last,
+                      R_prev2, t_prev2, has_vel, ref_kf, orb_cfg: ORBConfig,
+                      mm_radius, local_radius, depth_th, scale_factor,
+                      min_inliers_track, max_kf: int = 16,
+                      max_lm: int = 4096, n_levels: int = 8,
+                      n_slots: int = 0, depth_scale=None):
+    """C consecutive RGB-D frames in one call (``fused.py:328``, the
+    ``dyn=None`` branch of ``_chunk_body`` :400). images, auxs [C, H, W];
+    boxes [C, B, 4]; box_active [C, B].
+
+    Frames chain on the device as they do across calls: frame j+1 takes
+    frame j's pose as its motion-model base, frame j's landmark ids as its
+    last observations, and the landmark visible/found counters carry
+    through the chunk. The map snapshot is fixed for the whole chunk.
+    Returns (the C FusedOut, their packets stacked [C, 28] for one
+    readback)."""
+    outs = []
+    obs, Rl, tl, Rp2, tp2, hv = (last_obs_lm, R_last, t_last, R_prev2,
+                                 t_prev2, has_vel)
+    mm = m
+    one = torch.ones_like(has_vel)
+    for j in range(images.shape[0]):
+        with record_function("frame_build"):
+            fd = build_frame_data(cam, images[j], auxs[j], boxes[j],
+                                  box_active[j], orb_cfg, scale_factor,
+                                  n_slots=n_slots, depth_scale=depth_scale)
+        R_pred, t_pred = _predict_inside(Rl, tl, Rp2, tp2, hv)
+        out = _track_stages(mm, cam, bounds, fd, obs, R_pred, t_pred, Rl, tl,
+                            ref_kf, mm_radius, local_radius, depth_th,
+                            scale_factor, min_inliers_track, True, max_kf,
+                            max_lm, n_levels)
+        outs.append(out)
+        mm = mm._replace(lm_visible=out.lm_visible, lm_found=out.lm_found)
+        obs, Rp2, tp2, Rl, tl = out.obs_lm, Rl, tl, out.R, out.t
+        hv = one
+    return outs, torch.stack([o.packed for o in outs])

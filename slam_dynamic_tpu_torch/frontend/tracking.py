@@ -1,20 +1,28 @@
-"""The tracking state machine for the RGB-D per-frame path.
+"""The tracking state machine for the RGB-D path.
 
 Port of ``slam_dynamic_tpu/frontend/tracking.py:131`` (``Tracker``):
-``step_images`` :193, ``_initialize`` :723, ``_post_track`` :975, the
-keyframe decision ``_need_keyframe_counts`` :1055, ``_create_keyframe``
-:1070, the BoW fallback (``_bow_recover`` :55, ``_bow_fallback``), and
-LOST handling with the reset policy of ``_relocalize_then_track`` :833
-for a tracker without a relocalizer. The branchy control stays on the
-host; per frame the device sees one fused step and the host reads one
-[28]-float packet. Keyframe frames add one mapping-stage call.
+``step_images`` :193 with its pipelined branch (:276-307),
+``step_images_chunk`` :315 (temporal chunking, with the
+``chunk_eager_finalize`` and ``chunk_eager_upload_first`` branches),
+``_ChunkPacket`` and ``_PacketRow`` :82-108, ``_finalize_one`` :494,
+``_finalize_pending`` :516 and ``flush`` :583 (one ``flush`` here),
+``_bookkeep_pipelined`` :547 (``_record_pose``),
+``_initialize`` :723, ``_post_track`` :975, the keyframe decision
+``_need_keyframe_counts`` :1055, ``_create_keyframe`` :1070, the BoW
+fallback (``_bow_recover`` :55, ``_bow_fallback``), and LOST handling
+with the reset policy of ``_relocalize_then_track`` :833 for a tracker
+without a relocalizer. The branchy control stays on the host; per frame
+the device sees one fused step and the host reads one [28]-float packet
+(one [C, 28] packet per chunk). Keyframe frames add one mapping-stage
+call and the keyframe hook (loop detection, wired by the System).
 
-Not ported yet: the pipelined and chunked modes, stereo and mono,
-dynamic boxes, localization-only mode and relocalization.
-States: NOT_INITIALIZED -> OK <-> LOST.
+Not ported yet: the adaptive pipeline depth, stereo and mono, dynamic
+boxes, localization-only mode, relocalization and tracking a host-built
+frame (``_track`` :926). States: NOT_INITIALIZED -> OK <-> LOST.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, List, Optional, Tuple
 
@@ -29,7 +37,7 @@ from ..utils.camera import Intrinsics, undistorted_bounds
 from ..worldmap.keyframe_ops import make_keyframe
 from ..worldmap.state import MapState, empty_map, next_kf_slot
 from .frame import Frame, FrameData, build_frame
-from .fused import fused_track_step
+from .fused import fused_track_chunk, fused_track_step
 
 
 @dataclasses.dataclass
@@ -41,6 +49,34 @@ class TrackStats:
     frame_id: int = -1
     np_R: object = None       # camera pose (host numpy)
     np_t: object = None
+
+
+class _ChunkPacket:
+    """One readback shared by a chunk's frames (a single frame is a chunk
+    of one): the [C, 28] packet is copied to the host on first access
+    (counted on ``owner``) and kept for the other rows."""
+
+    def __init__(self, dev: torch.Tensor, owner):
+        self.dev = dev
+        self.owner = owner
+        self._np = None
+
+    def get(self) -> np.ndarray:
+        if self._np is None:
+            self._np = self.dev.cpu().numpy()
+            self.owner.packet_reads += 1
+        return self._np
+
+
+class _PacketRow:
+    """A frame's row of its chunk's shared packet."""
+
+    def __init__(self, shared: _ChunkPacket, j: int):
+        self._shared = shared
+        self._j = j
+
+    def numpy(self) -> np.ndarray:
+        return self._shared.get()[self._j]
 
 
 def _slot_probe(m: MapState) -> np.ndarray:
@@ -83,9 +119,10 @@ def _bow_recover(m: MapState, cam, fd: FrameData, k, R0, t0):
 
 class Tracker:
     def __init__(self, cfg: SystemConfig, cam: Intrinsics):
-        if cfg.tracking.pipeline_depth or cfg.tracking.depth_stride != 1:
+        if cfg.tracking.adaptive_pipeline or cfg.tracking.depth_stride != 1:
             raise NotImplementedError(
-                "pipelined tracking and strided depth are not ported yet")
+                "the adaptive pipeline depth and strided depth are not "
+                "ported yet")
         self.cfg = cfg
         self.cam = cam
         self.device = cam.fx.device
@@ -101,9 +138,15 @@ class Tracker:
         self.trajectory: List[tuple] = []
         self._traj_by_slot = {}   # kf slot -> trajectory indices
         self._slot_gen = {}       # kf slot -> recycle generation
-        # keyframe hook (loop detection in the reference); unset until
-        # loop detection is ported
+        # keyframe hook: k -> None, called after keyframe slot k is
+        # inserted (loop detection, wired by the System)
         self.on_keyframe: Optional[Callable[[int], None]] = None
+        # pipelined and chunked modes: (frame, out) awaiting readback
+        self._pending = collections.deque()
+        # fused tracking dispatches (one per frame or chunk) and the
+        # device-to-host copies of their packets: equal once flushed
+        self.dispatches = 0
+        self.packet_reads = 0
         self._sf = float(cfg.orb.scale_factor)
         self._kf_pose_cache = {}
         self._dev_consts = None
@@ -159,65 +202,199 @@ class Tracker:
         return self._ref_kf_dev[1]
 
     # ------------------------------------------------------------------
+    def _chain_inputs(self):
+        """The device state a dispatch chains on: the last frame's
+        landmark ids and pose, and the pose two frames back (or the last
+        pose with has_vel 0)."""
+        dc = self._scalar_consts()
+        R_last, t_last = self.last_frame.R, self.last_frame.t
+        if self._prev2_pose is None:
+            return (self.last_frame.obs_lm, R_last, t_last, R_last, t_last,
+                    dc["vel0"])
+        R_prev2, t_prev2 = self._prev2_pose
+        return (self.last_frame.obs_lm, R_last, t_last, R_prev2, t_prev2,
+                dc["vel1"])
+
+    def _track_kwargs(self):
+        cfg, dc = self.cfg, self._scalar_consts()
+        return dict(
+            orb_cfg=cfg.orb, mm_radius=dc["mm_radius"],
+            local_radius=dc["local_radius"], depth_th=dc["depth_th"],
+            scale_factor=dc["sf"], min_inliers_track=dc["min_tr"],
+            max_kf=cfg.capacity.local_ba_keyframes,
+            max_lm=cfg.capacity.local_ba_landmarks,
+            n_levels=cfg.orb.n_levels, n_slots=cfg.capacity.max_keypoints)
+
+    def _ref_at_dispatch(self):
+        """(reference keyframe slot, its recycle generation) as the fused
+        step sees them: its packet carries that slot's pose."""
+        ref_k = max(self.last_kf_id, 0)
+        return ref_k, self._slot_gen.get(ref_k, 0)
+
+    @staticmethod
+    def _new_frame(out, frame_id: int, timestamp: float, ref) -> Frame:
+        return Frame(data=out.fd, frame_id=frame_id, timestamp=timestamp,
+                     ref_kf=ref[0], ref_gen=ref[1])
+
     def step_images(self, gray: np.ndarray, depth: np.ndarray,
                     frame_id: int, timestamp: float) -> TrackStats:
         """Raw images in, one fused device step, one packed readback. Only
         valid while tracking is OK; other states build the frame on the
-        host (initialization, LOST)."""
+        host (initialization, LOST). With ``pipeline_depth`` > 0 the
+        frame's readback waits until that many newer frames were
+        dispatched, and the stats returned are the oldest frame's."""
         if self.state != "OK":
+            self.flush()
+            if self.state == "OK":
+                raise NotImplementedError(
+                    "a pipelined frame recovered tracking after a LOST "
+                    "frame: tracking a host-built frame (Tracker._track) is "
+                    "not ported yet (ROADMAP Queue 1, item 14)")
             frame = build_frame(self.cfg, self.cam, gray, frame_id,
                                 timestamp, depth)
             st = self._initialize(frame) \
                 if self.state == "NOT_INITIALIZED" else self._lost(frame)
             self._bookkeep(frame)
             return st
-        cfg = self.cfg
         dc = self._scalar_consts()
-        last_ids = self.last_frame.obs_lm
-        R_last, t_last = self.last_frame.R, self.last_frame.t
-        if self._prev2_pose is None:
-            R_prev2, t_prev2, has_vel = R_last, t_last, dc["vel0"]
-        else:
-            (R_prev2, t_prev2), has_vel = self._prev2_pose, dc["vel1"]
+        chain = self._chain_inputs()
         g_arr, d_arr, depth_scale = self._stage_inputs(gray, depth)
-        ref_k = max(self.last_kf_id, 0)
         out = fused_track_step(
             self.map, self.cam, self.bounds, g_arr, d_arr, dc["bx_empty"],
-            dc["ba_empty"], last_ids, R_last, t_last, R_prev2, t_prev2,
-            has_vel, self._ref_kf_const(), cfg.orb,
-            dc["mm_radius"], dc["local_radius"], dc["depth_th"], dc["sf"],
-            dc["min_tr"], max_kf=cfg.capacity.local_ba_keyframes,
-            max_lm=cfg.capacity.local_ba_landmarks,
-            n_levels=cfg.orb.n_levels, n_slots=cfg.capacity.max_keypoints,
-            depth_scale=depth_scale)
-        self._prev2_pose = (R_last, t_last)
-        frame = Frame(data=out.fd, frame_id=frame_id, timestamp=timestamp,
-                      ref_kf=ref_k, ref_gen=self._slot_gen.get(ref_k, 0))
+            dc["ba_empty"], *chain, self._ref_kf_const(),
+            depth_scale=depth_scale, **self._track_kwargs())
+        self.dispatches += 1
+        out = out._replace(packed=_PacketRow(
+            _ChunkPacket(out.packed[None], self), 0))
+        self._prev2_pose = chain[1:3]
+        frame = self._new_frame(out, frame_id, timestamp,
+                                self._ref_at_dispatch())
+        depth_n = self.cfg.tracking.pipeline_depth
+        if depth_n > 0:
+            # finalize the oldest in-flight frame(s) while this one runs:
+            # decisions lag depth_n frames
+            frame.R, frame.t, frame.obs_lm = out.R, out.t, out.obs_lm
+            st_prev = None
+            while len(self._pending) >= depth_n:
+                st_prev = self._finalize_one()
+            self._pending.append((frame, out))
+            self.last_frame = frame
+            return st_prev if st_prev is not None else TrackStats("OK")
         st = self._post_track(frame, out)
         self._bookkeep(frame)
         return st
 
+    def step_images_chunk(self, frames) -> List[TrackStats]:
+        """Temporal chunking: C consecutive frames in one fused call and
+        one [C, 28] packet readback. ``frames``: list of (gray, depth,
+        frame_id, timestamp). Frames chain on the device; the map
+        snapshot is fixed for the chunk, so keyframe and LOST decisions
+        lag. Returns the stats of the frames finalized in this call: with
+        ``pipeline_depth`` > 0 the previous chunk's, finalized while this
+        one runs; with ``chunk_eager_finalize`` the previous chunk's,
+        before this one is dispatched; else this chunk's."""
+        if self.state != "OK" or len(frames) == 1:
+            return [self.step_images(g, d, fid, ts)
+                    for g, d, fid, ts in frames]
+        cfg = self.cfg
+        sts = []
+        eager = cfg.tracking.chunk_eager_finalize
+        upload_first = eager and cfg.tracking.chunk_eager_upload_first
+
+        def finalize_all():
+            # False when a finalized frame went LOST: the frames chained
+            # after it on the device are dropped
+            while self._pending:
+                sts.append(self._finalize_one())
+                if self.state != "OK":
+                    self._pending.clear()
+                    return False
+            return True
+
+        if eager and not upload_first and not finalize_all():
+            return sts
+        C = len(frames)
+        g_arr, d_arr, depth_scale = self._stage_inputs(
+            np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames]))
+        bx, ba = self._chunk_empty_boxes(C)
+        if upload_first and not finalize_all():
+            # the images went up first; the map and chain are read after
+            # the finalize, as in plain eager mode
+            return sts
+        chain = self._chain_inputs()
+        ref = self._ref_at_dispatch()
+        outs, packed_dev = fused_track_chunk(
+            self.map, self.cam, self.bounds, g_arr, d_arr, bx, ba, *chain,
+            self._ref_kf_const(), depth_scale=depth_scale,
+            **self._track_kwargs())
+        self.dispatches += 1
+        if not finalize_all():       # overlapped: the previous chunk
+            return sts
+        shared = _ChunkPacket(packed_dev, self)
+        for j, (_, _, fid, ts) in enumerate(frames):
+            out = outs[j]._replace(packed=_PacketRow(shared, j))
+            fr = self._new_frame(out, fid, ts, ref)
+            fr.R, fr.t, fr.obs_lm = out.R, out.t, out.obs_lm
+            self._pending.append((fr, out))
+        self._prev2_pose = (outs[-2].R, outs[-2].t)
+        self.last_frame = self._pending[-1][0]
+        if cfg.tracking.pipeline_depth == 0:
+            finalize_all()
+        return sts
+
+    def _chunk_empty_boxes(self, C: int):
+        dc = self._scalar_consts()
+        key = ("chunk_empty_boxes", C)
+        if key not in dc:
+            B = self.cfg.dynamic.max_boxes
+            dc[key] = (torch.full((C, B, 4), -1.0, device=self.device),
+                       torch.zeros((C, B), dtype=torch.bool,
+                                   device=self.device))
+        return dc[key]
+
+    def _finalize_one(self) -> TrackStats:
+        """Read back and bookkeep the oldest in-flight frame."""
+        frame, out = self._pending.popleft()
+        saved_last = self.last_frame
+        st = self._post_track(frame, out)
+        # the frame dispatched last stays the one the next dispatch
+        # chains on
+        self._record_pose(frame)
+        self.last_frame = saved_last
+        return st
+
+    def flush(self) -> List[TrackStats]:
+        """Drain the in-flight frames (before reading the trajectory or
+        switching modes; the reference's ``_finalize_pending`` and
+        ``flush``); returns their stats, oldest first."""
+        sts = []
+        while self._pending:
+            sts.append(self._finalize_one())
+        return sts
+
     # ------------------------------------------------------------------
     def _bookkeep(self, frame: Frame):
+        self._record_pose(frame)
+        self.last_frame = frame
+
+    def _record_pose(self, frame: Frame):
         """Trajectory bookkeeping on the host. Poses are stored relative
         to the reference keyframe so later map corrections reach the
-        exported trajectory."""
-        if frame.R is not None:
-            R = frame.np_R if frame.np_R is not None else \
-                frame.R.cpu().numpy()
-            t = frame.np_t if frame.np_t is not None else \
-                frame.t.cpu().numpy()
-            if self._ref_slot_recycled(frame):
-                self.trajectory.append((frame.timestamp, -1, R, t))
-            else:
-                k, Rk, tk = self._ref_kf_pose(frame)
-                R_rel = R @ Rk.T
-                self._traj_by_slot.setdefault(k, []).append(
-                    len(self.trajectory))
-                self.trajectory.append((frame.timestamp, k, R_rel,
-                                        t - R_rel @ tk))
-            frame.np_R, frame.np_t = R, t
-        self.last_frame = frame
+        exported trajectory; a frame whose reference slot was recycled
+        while it was in flight is stored absolute."""
+        if frame.R is None:
+            return
+        R = frame.np_R if frame.np_R is not None else frame.R.cpu().numpy()
+        t = frame.np_t if frame.np_t is not None else frame.t.cpu().numpy()
+        if self._ref_slot_recycled(frame):
+            self.trajectory.append((frame.timestamp, -1, R, t))
+        else:
+            k, Rk, tk = self._ref_kf_pose(frame)
+            R_rel = R @ Rk.T
+            self._traj_by_slot.setdefault(k, []).append(len(self.trajectory))
+            self.trajectory.append((frame.timestamp, k, R_rel,
+                                    t - R_rel @ tk))
+        frame.np_R, frame.np_t = R, t
 
     def _ref_slot_recycled(self, frame: Frame) -> bool:
         return (frame.ref_kf >= 0 and
@@ -332,6 +509,7 @@ class Tracker:
         self.n_kf_host = 0
         self.kf_seq = 0
         self._lost_streak = 0
+        self._pending.clear()
 
     # ------------------------------------------------------------------
     def _bow_fallback(self, frame: Frame, np_R, np_t):
@@ -358,7 +536,7 @@ class Tracker:
 
     def _post_track(self, frame: Frame, out) -> TrackStats:
         cfg = self.cfg
-        packed = out.packed.cpu().numpy()      # the single readback
+        packed = out.packed.numpy()      # the frame's or chunk's readback
         n_mm, n_map = int(packed[0]), int(packed[1])
         close_bound, close_unbound = int(packed[2]), int(packed[3])
         np_R = packed[4:13].reshape(3, 3)

@@ -25,7 +25,9 @@ from .hamming import INVALID, hamming_matrix_plain, top2_min
 # Launches of kernel K1 (one per CUDA call of gated_match).
 launches = 0
 
-# K1 packs a landmark index into the low 16 bits of its candidate keys.
+# K1 packs a landmark index into the low 16 bits of its candidate keys,
+# so one launch takes at most this many landmarks; the wrapper splits a
+# larger set into ranges and merges their results (``gated_match_ranges``).
 MAX_LANDMARKS = 1 << 16
 
 
@@ -59,6 +61,37 @@ def gated_match_plain(kp_desc, kp_xy, kp_level, kp_ok,
     return idx.to(torch.int32), best, second
 
 
+def merge_top2(first, later):
+    """Merge the (idx, best, second) of two landmark ranges, every index of
+    ``later`` above every index of ``first``, into the result over both:
+    the best is the minimum of (best, idx), so a tie keeps ``first``'s
+    lower index, and the runner-up is the minimum of the winning range's
+    runner-up and the other range's best. Exact."""
+    idx_a, best_a, second_a = first
+    idx_b, best_b, second_b = later
+    take_b = best_b < best_a
+    return (torch.where(take_b, idx_b, idx_a),
+            torch.where(take_b, best_b, best_a),
+            torch.where(take_b, torch.minimum(second_b, best_a),
+                        torch.minimum(second_a, best_b)))
+
+
+def gated_match_ranges(match, kp_args, lm_args, range_size: int,
+                       lvl_min: int = -1, lvl_max: int = 1):
+    """``match`` (a gated-match function) over consecutive landmark ranges
+    of at most ``range_size``, each range's ``idx`` offset to the whole
+    set's and the results merged with ``merge_top2``: the same
+    (idx, best, second) as one call over all landmarks."""
+    m = lm_args[0].shape[0]
+    out = None
+    for lo in range(0, m, range_size):
+        i, b, s = match(*kp_args, *(a[lo:lo + range_size] for a in lm_args),
+                        lvl_min=lvl_min, lvl_max=lvl_max)
+        part = (i + lo, b, s)
+        out = part if out is None else merge_top2(out, part)
+    return out
+
+
 def gated_match(kp_desc, kp_xy, kp_level, kp_ok,
                 lm_desc, lm_uv, lm_radius, lm_lvl, lm_ok,
                 lvl_min: int = -1, lvl_max: int = 1):
@@ -67,19 +100,33 @@ def gated_match(kp_desc, kp_xy, kp_level, kp_ok,
     kp_desc [N, 8] int32, kp_xy [N, 2] f32, kp_level [N] int32, kp_ok [N]
     bool; lm_desc [M, 8] int32, lm_uv [M, 2] f32, lm_radius [M] f32,
     lm_lvl [M] int32, lm_ok [M] bool. Returns (idx, best, second), each
-    [N] int32 (INVALID where no pair passes). Kernel K1 on CUDA tensors
-    (M <= MAX_LANDMARKS), the plain version on CPU tensors.
+    [N] int32 (INVALID where no pair passes). Kernel K1 on CUDA tensors,
+    the plain version on CPU tensors. Above MAX_LANDMARKS landmarks K1
+    runs on equal consecutive ranges of at most MAX_LANDMARKS, one launch
+    each, and the results are merged exactly.
     """
     if kp_desc.device.type == "cpu":
         return gated_match_plain(kp_desc, kp_xy, kp_level, kp_ok, lm_desc,
                                  lm_uv, lm_radius, lm_lvl, lm_ok,
                                  lvl_min, lvl_max)
+    m = lm_desc.shape[0]
+    if m > MAX_LANDMARKS:
+        n_ranges = -(-m // MAX_LANDMARKS)
+        return gated_match_ranges(
+            _launch_k1, (kp_desc, kp_xy, kp_level, kp_ok),
+            (lm_desc, lm_uv, lm_radius, lm_lvl, lm_ok),
+            -(-m // n_ranges), lvl_min, lvl_max)
+    return _launch_k1(kp_desc, kp_xy, kp_level, kp_ok, lm_desc, lm_uv,
+                      lm_radius, lm_lvl, lm_ok, lvl_min=lvl_min,
+                      lvl_max=lvl_max)
+
+
+def _launch_k1(kp_desc, kp_xy, kp_level, kp_ok, lm_desc, lm_uv, lm_radius,
+               lm_lvl, lm_ok, lvl_min: int = -1, lvl_max: int = 1):
+    """One launch of K1 on CUDA tensors, M <= MAX_LANDMARKS."""
     global launches
     dev = kp_desc.device
     n, m = kp_desc.shape[0], lm_desc.shape[0]
-    if m > MAX_LANDMARKS:
-        raise ValueError(f"gated_match: {m} landmarks, the kernel takes at "
-                         f"most {MAX_LANDMARKS}")
     # the kernel squares the radius in f32, as the reference's wrapper does
     radius = lm_radius.to(torch.float32).contiguous()
     args = [

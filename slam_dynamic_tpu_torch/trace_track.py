@@ -1,41 +1,69 @@
-"""Where the time of ``System.track_rgbd`` goes on the card.
+"""Where the time of the tracker goes on the card, per frame and chunked.
 
     python -m slam_dynamic_tpu_torch.trace_track
 
-Runs ``FRAMES`` frames of the bench world (io/bench_world.py) on the GPU:
-every frame timed on the host clock with a synchronize, then
-``torch.profiler`` over the last ``WINDOW`` frames. Prints the steady
-per-frame times, the device's busy share over the window (summed kernel
-time / wall time), the named stages (``record_function`` spans in the
-port) and the operators that take the most device and host time. Needs a
-CUDA device.
+Runs ``FRAMES`` frames of the bench world (io/bench_world.py) on the GPU
+twice: ``System.track_rgbd`` frame by frame, then ``System.track_chunk``
+in chunks of ``CHUNK`` with one chunk in flight, as
+``slam_dynamic_tpu_torch.bench`` runs it. Each step is timed on the host
+clock with a synchronize, then ``torch.profiler`` covers the last
+``WINDOW`` frames (and, chunked, the flush of the chunk in flight).
+Prints the steady step times, the device's busy share over the window
+(summed kernel time / wall time), kernel launches and syncs per frame,
+the named stages (``record_function`` spans in the port) and the
+operators that take the most device and host time. Needs a CUDA device.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
+from .bench import PIPELINE_DEPTH
 from .io.bench_world import bench_world
 from .system import System
 
 FRAMES = 40
-WINDOW = 8
+WINDOW = 12
+CHUNK = 6
 STAGES = ("frame_build", "mm_track", "local_map", "local_track",
           "mapping_stage", "triangulate", "fuse", "local_ba")
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("trace_track: needs a CUDA device")
-    seq, gray8, depth16, cfg = bench_world(FRAMES)
+def _steps(system, world, chunk: int):
+    """(first frame, step) pairs covering the frames: one frame each, or
+    frame 0 to initialize and then chunks."""
+    seq, gray8, depth16, _ = world
+    ts = [float(t) for t in seq.timestamps]
+
+    def frame(i):
+        return lambda: [system.track_rgbd(gray8[i], depth16[i], ts[i])]
+
+    def block(i):
+        return lambda: system.track_chunk(gray8[i:i + chunk],
+                                          depth16[i:i + chunk],
+                                          ts[i:i + chunk])
+    if chunk == 1:
+        return [(i, frame(i)) for i in range(FRAMES)]
+    return [(0, frame(0))] + [(i, block(i))
+                              for i in range(1, FRAMES - chunk + 1, chunk)]
+
+
+def trace(chunk: int):
+    world = bench_world(FRAMES)
+    cfg = world[3]
+    if chunk > 1:
+        cfg = cfg.replace(tracking=dataclasses.replace(
+            cfg.tracking, pipeline_depth=PIPELINE_DEPTH))
     system = System(cfg)
-    first = FRAMES - WINDOW
+    steps = _steps(system, world, chunk)
+    n_win = WINDOW // chunk
     times = []
-    for i in range(first):
+    for _, step in steps[:-n_win]:
         t0 = time.perf_counter()
-        system.track_rgbd(gray8[i], depth16[i], float(seq.timestamps[i]))
+        step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -43,14 +71,17 @@ def main():
     n_kf = 0
     with torch.profiler.profile(activities=acts) as prof:
         t_win = time.perf_counter()
-        for i in range(first, FRAMES):
-            st = system.track_rgbd(gray8[i], depth16[i],
-                                   float(seq.timestamps[i]))
-            n_kf += int(st.is_keyframe)
+        for _, step in steps[-n_win:]:
+            n_kf += sum(st.is_keyframe for st in step())
+        n_kf += sum(st.is_keyframe for st in system.tracker.flush())
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t_win) * 1e3
-    print(f"device {torch.cuda.get_device_name(0)}; frames 0..{first - 1} "
-          f"host ms: p50 {np.median(times[1:]):.2f}, first {times[0]:.1f}")
+    n_frames = n_win * chunk
+    what = "frame" if chunk == 1 else f"chunk of {chunk}"
+    print(f"== {'track_rgbd' if chunk == 1 else 'track_chunk'} on "
+          f"{torch.cuda.get_device_name(0)}: steps before the window, host "
+          f"ms per {what}: p50 {np.median(times[1:]):.2f}, first "
+          f"{times[0]:.1f}")
     ev = prof.key_averages()
     # device time of the kernels themselves: the operators' rows repeat
     # it, and the record_function spans' device rows cover whole ranges
@@ -58,11 +89,11 @@ def main():
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and e.key not in STAGES)
     launches = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
-    print(f"window: {WINDOW} frames ({n_kf} keyframes), wall "
-          f"{wall_ms:.1f} ms = {wall_ms / WINDOW:.2f} ms/frame; device "
+    print(f"window: {n_frames} frames ({n_kf} keyframes), wall "
+          f"{wall_ms:.1f} ms = {wall_ms / n_frames:.2f} ms/frame; device "
           f"kernel time {kernel_us / 1e3:.1f} ms, busy share "
           f"{kernel_us / 1e3 / wall_ms:.3f}; cudaLaunchKernel calls "
-          f"{launches} ({launches / WINDOW:.0f} per frame)")
+          f"{launches} ({launches / n_frames:.0f} per frame)")
     # a span appears twice: its host range and its range on the device
     for name in STAGES:
         rows = [e for e in ev if e.key == name]
@@ -73,9 +104,16 @@ def main():
                   f"{max(e.device_time_total for e in rows) / 1e3:9.2f} ms")
     syncs = {e.key: e.count for e in ev
              if "Synchronize" in e.key or "Memcpy" in e.key}
-    print(f"sync/copy calls in window: {syncs}")
-    print(ev.table(sort_by="self_device_time_total", row_limit=25))
-    print(ev.table(sort_by="self_cpu_time_total", row_limit=25))
+    print(f"sync/copy calls in window ({n_frames} frames): {syncs}")
+    print(ev.table(sort_by="self_device_time_total", row_limit=20))
+    print(ev.table(sort_by="self_cpu_time_total", row_limit=20))
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("trace_track: needs a CUDA device")
+    trace(1)
+    trace(CHUNK)
 
 
 if __name__ == "__main__":

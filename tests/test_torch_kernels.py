@@ -59,6 +59,37 @@ def test_k1_plain_level_window(lo, hi):
     assert (got[1] <= b_narrow).all()
 
 
+@pytest.mark.parametrize("m,range_size", [(256, 64), (300, 7), (257, 128),
+                                          (64, 63), (64, 64)])
+def test_k1_landmark_ranges_merge_exactly(m, range_size):
+    """gated_match_ranges (the wrapper's split above MAX_LANDMARKS, here
+    with a small range) against one plain call over all landmarks, bit
+    for bit, idx included: copies of each keypoint's descriptor are
+    planted on both sides of range boundaries, so best and runner-up tie
+    across ranges and the lowest index must win."""
+    rng = np.random.default_rng(m + range_size)
+    n = 128
+    args = _problem(rng, n, m, 0.3)
+    args[6] = np.full(m, 1e4, np.float32)      # every radius passes
+    args[7] = np.zeros(m, np.int32)
+    args[2] = np.zeros(n, np.int32)
+    args[3] = np.ones(n, bool)
+    args[8] = np.ones(m, bool)
+    bounds = list(range(range_size, m, range_size)) or [m // 2]
+    for r in range(n):
+        b = bounds[r % len(bounds)]
+        for j in (b - 1, b, min(b + 1, m - 1)):
+            args[4][j] = args[0][r]
+    t = _torch(args)
+    ref = gm.gated_match_plain(*t)
+    got = gm.gated_match_ranges(gm.gated_match_plain, t[:4], t[4:],
+                                range_size)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+    assert int((ref[1] == ref[2]).sum()) > 0        # ties were exercised
+
+
 def test_accept_match_matches_reference():
     from slam_dynamic_tpu.ops.pallas_match import accept_match as jaccept
     rng = np.random.default_rng(3)

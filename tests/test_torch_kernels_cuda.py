@@ -182,20 +182,52 @@ def test_k1_kernel_all_masked_on_card(cuda_device, which):
 
 @pytest.mark.cuda
 def test_k1_kernel_landmark_limit_on_card(cuda_device):
-    """M at the key-packing limit works, with the best planted at the last
-    index; one landmark more raises."""
+    """M at the key-packing limit works in one launch, with the best
+    planted at the last index; one landmark more is split into two
+    launches whose merge is bit-exact with the plain version."""
     n, m = 64, gm.MAX_LANDMARKS
     rng = np.random.default_rng(5)
     args = _problem(rng, n, m)
     args[4][m - 1] = args[0][0]
     args = _open_gates(_torch(args, cuda_device))
+    before = gm.launches
     idx, best, _ = _check_k1(args)
+    assert gm.launches == before + 1
     assert int(idx[0]) == m - 1 and int(best[0]) == 0
     more = _torch(_problem(rng, n, m + 1), cuda_device)
     before = gm.launches
-    with pytest.raises(ValueError):
-        gm.gated_match(*more)
-    assert gm.launches == before
+    got = gm.gated_match(*more)
+    assert gm.launches == before + 2
+    for k, p in zip(got, gm.gated_match_plain(*more)):
+        assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [gm.MAX_LANDMARKS + 1,
+                               2 * gm.MAX_LANDMARKS + 3])
+def test_k1_kernel_above_landmark_limit_on_card(cuda_device, m):
+    """Above MAX_LANDMARKS the wrapper runs K1 on equal landmark ranges and
+    merges them: bit-exact with the plain version, idx included, with
+    copies of keypoint descriptors planted on both sides of each range
+    boundary so the best and the runner-up tie across ranges."""
+    n = 96
+    rng = np.random.default_rng(m)
+    args = _problem(rng, n, m, 0.1)
+    n_ranges = -(-m // gm.MAX_LANDMARKS)
+    size = -(-m // n_ranges)
+    for r in range(n):
+        b = size * (1 + r % (n_ranges - 1 or 1))
+        for j in (b - 1, min(b, m - 1)):
+            args[4][j] = args[0][r]
+    args = _open_gates(_torch(args, cuda_device))
+    before = gm.launches
+    got = gm.gated_match(*args)
+    assert gm.launches == before + n_ranges
+    ref = gm.gated_match_plain(*args)
+    torch.cuda.synchronize()
+    for k, p in zip(got, ref):
+        assert torch.equal(k, p)
+    assert bool((ref[1] == 0).any() and (ref[2] == 0).any())
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """The LOST path of the port's System against the JAX System (both with
-no relocalizer and no keyframe hook): the same state on every frame."""
+their keyframe hook, so loop detection runs on every keyframe, and with
+no relocalizer): the same state on every frame."""
 import numpy as np
 
 from slam_dynamic_tpu.system import System as JSystem
@@ -16,7 +17,6 @@ def test_lost_and_reset_path_matches_jax():
     blank = np.full_like(gray8[0], 128)
     frames = [gray8[0], gray8[1], blank, gray8[3], gray8[4], gray8[5]]
     js = JSystem(jcfg)
-    js.tracker.on_keyframe = None
     js.tracker.relocalizer = None
     ts = System(tcfg, device="cpu")
     states = []

@@ -7,6 +7,7 @@ stays on the CPU (tests/conftest.py) and the port runs with
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from slam_dynamic_tpu import config as JC
@@ -77,3 +78,91 @@ def f32(v):
 
 def asdict(cfg):
     return dataclasses.asdict(cfg)
+
+
+# --- chunked System runs (tests/test_torch_chunk.py,
+# tests/test_torch_bench_world.py) ---
+
+def with_tracking(cfg, **kw):
+    return cfg.replace(tracking=dataclasses.replace(cfg.tracking, **kw))
+
+
+def record_detect(mp, cls, log):
+    """Patch ``cls._detect`` (a LoopCloser of either package) to append
+    (slot, seq, result, streaks) of every call to ``log``."""
+    orig = cls._detect
+
+    def detect(self, m, k, hist, seq=None):
+        r = orig(self, m, k, hist, seq)
+        log.append((k, seq, r, dict(self.streaks)))
+        return r
+    mp.setattr(cls, "_detect", detect)
+
+
+def run_chunked(system, world, n_frames, C=6):
+    """``bench.py``'s chunked drive of either package's System: per frame
+    until tracking is OK, then chunks of C, then the frames in flight.
+    ``world`` is (_, seq, gray8, depth16)."""
+    _, seq, gray8, depth16 = world
+    ts = [float(t) for t in seq.timestamps]
+    stats, i = [], 0
+    while system.tracker.state != "OK":
+        stats.append(system.track_rgbd(gray8[i], depth16[i], ts[i]))
+        i += 1
+    n_chunks = 0
+    while i + C <= n_frames:
+        stats += system.track_chunk(gray8[i:i + C], depth16[i:i + C],
+                                    ts[i:i + C])
+        i += C
+        n_chunks += 1
+    while system.tracker._pending:     # flush, keeping every frame's stats
+        stats.append(system.tracker._finalize_one())
+    est = np.stack([-R.T @ t for _, R, t in system.trajectory])
+    return dict(stats=stats, est=est, n_chunks=n_chunks, system=system)
+
+
+def run_pair(jsystem, tsystem, world, n_frames):
+    """run_chunked of the JAX and the port System, each run with its
+    ``_detect`` calls under ``"detects"``."""
+    from slam_dynamic_tpu.backend.loop_closing import LoopCloser as JLC
+    from slam_dynamic_tpu_torch.backend.loop_closing import LoopCloser as TLC
+    detects = {"jax": [], "port": []}
+    with pytest.MonkeyPatch.context() as mp:
+        record_detect(mp, JLC, detects["jax"])
+        record_detect(mp, TLC, detects["port"])
+        runs = {"jax": run_chunked(jsystem, world, n_frames),
+                "port": run_chunked(tsystem, world, n_frames)}
+    for name in runs:
+        runs[name]["detects"] = detects[name]
+    return runs
+
+
+def decisions(run):
+    """(frame id, state, keyframe) of every finalized frame."""
+    return [(s.frame_id, s.state, s.is_keyframe) for s in run["stats"]]
+
+
+def check_kfdb(js, ts):
+    """Database rows equal where the keyframe's descriptors are equal in
+    both maps; the extractors agree on about 99.9% of keypoints, and a
+    keyframe with d differing descriptors differs in at most 2d words."""
+    bj, bt = js.loop.db, ts.loop.db
+    jm, tm = js.tracker.map, ts.tracker.map
+    np.testing.assert_array_equal(bt.valid.numpy(), np.asarray(bj.valid))
+    n_equal = 0
+    for k in np.flatnonzero(np.asarray(bj.valid)):
+        dj = np.asarray(jm.kf_kp_desc[k]).view(np.int32)
+        vj = np.asarray(jm.kf_kp_valid[k])
+        vt = tm.kf_kp_valid[k].numpy()
+        differ = (vj != vt) | ((dj != tm.kf_kp_desc[k].numpy()).any(1) & vj)
+        wj, wt = np.asarray(bj.word[k]), bt.word[k].numpy()
+        if not differ.any():
+            n_equal += 1
+            np.testing.assert_array_equal(wt, wj)
+            np.testing.assert_allclose(bt.weight[k].numpy(),
+                                       np.asarray(bj.weight[k]), atol=1e-6,
+                                       rtol=0)
+        else:
+            sj, st = set(wj[wj >= 0]), set(wt[wt >= 0])
+            assert len(sj ^ st) <= 2 * int(differ.sum()), k
+    assert n_equal >= 0.8 * int(bt.valid.sum())
