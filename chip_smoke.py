@@ -33,15 +33,33 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      detector's calls and candidates, LOST frames, ATE, the launches of
      K1 and K2 over the phase, and the vocabulary the System read; the
      K1 calls of its first (untimed) warm chunk are held bit-equal with
-     the plain version.
+     the plain version;
+  6. the dynamic scene as ``python -m slam_dynamic_tpu_torch.bench
+     --dynamic`` runs it (``bench.py --dynamic``'s default): the same
+     640x480 world with a moving object, its boxes fed every frame it is
+     in view (frames 0-50), System.track_chunk at C = 6 with one chunk in
+     flight and the fused H/F box classification on every 2nd chunk
+     frame: fps, chunk p50 and p90 ms, LOST frames, ATE, the launches of
+     K1 and K2, K2's launches per chunk (3 classifications in every
+     chunk that makes no keyframe, at least 3 in the others), packet
+     readbacks (one per chunk) and the per-box status history; the
+     object must be confirmed dynamic (status 2) before it leaves view.
+     K2 is held bit-equal with its plain version on the three
+     classifications of the first chunk with a reference frame and timed
+     there, beside its plain version and the library call;
+  7. the per-frame dynamic path: 30 frames of that world through
+     System.track_rgbd(detections=) classifying every 2nd frame, so both
+     forms of the dynamic step run: LOST frames, the forms dispatched,
+     the launches and the box status.
 
 Kernel, plain and library times are device times (CUDA-graph replay
 between CUDA events, slam_dynamic_tpu_torch/kernel_bench.py), each beside
-the least time the card could take for the same work. It then prints the
-kernel table as one JSON line (``launches`` is phase 5's count, the main
-path's; ``launches_per_phase`` adds phase 3's) and, last, the result
+the least time the card could take for the same work; K2's row takes
+its times from phase 6's inputs. It then prints the kernel table as one
+JSON line (``launches`` is phase 5's count, the main path's;
+``launches_per_phase`` adds phases 3, 6 and 7) and, last, the result
 line. Any failed check raises, and a hang ends in a traceback and a
-nonzero exit after 600 s.
+nonzero exit after 1100 s.
 """
 import faulthandler
 import json
@@ -50,12 +68,14 @@ import subprocess
 import sys
 import time
 
-faulthandler.dump_traceback_later(600, exit=True)
+faulthandler.dump_traceback_later(1100, exit=True)
 
 SEED = 0
 N_FRAMES = 60
 CHUNK = 6
 CHUNK_FRAMES = 120
+DYN_FRAMES = 30
+OBJECT_LEAVES = 50      # the bench world's object is in view before this
 
 
 def log(msg):
@@ -138,8 +158,22 @@ def phase_k2(dev, hm, kb):
     err = int((dk - dp).abs().max())
     if not torch.equal(dk, dp):
         raise AssertionError(f"K2: kernel != plain (err {err})")
-    # yardstick: the JAX package's own formulation, (256 - A.B^T) / 2 on
-    # bipolar int8 operands, as one PyTorch call on pre-unpacked inputs
+    ms, plain_ms, lib_ms, b_ms, b_by = k2_times(hm, kb, a, b)
+    log(f"phase 2 K2 hamming_matrix {n}x{m}: bit-equal with plain; device "
+        f"time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{b_ms / ms:.1%} of it reached)")
+    return err
+
+
+def k2_times(hm, kb, a, b):
+    """Device times of K2, its plain version and one library call on one
+    input pair, and K2's bound there. The library call is the JAX
+    package's own formulation, (256 - A.B^T) / 2 on bipolar int8
+    operands, as one ``torch._int_mm`` on pre-unpacked inputs (timed here
+    only, never called by the port)."""
+    import torch
+    dev = a.device
     shifts = torch.arange(32, device=dev, dtype=torch.int32)
 
     def bipolar(d):
@@ -147,22 +181,13 @@ def phase_k2(dev, hm, kb):
         return (bits.reshape(d.shape[0], 256) * 2 - 1).to(torch.int8)
 
     A, Bt = bipolar(a), bipolar(b).t()
-    dot = torch._int_mm(A, Bt)
-    if not torch.equal((256 - dot) >> 1, dk):
+    if not torch.equal((256 - torch._int_mm(A, Bt)) >> 1,
+                       hm.hamming_matrix_plain(a, b)):
         raise AssertionError("K2: library yardstick disagrees")
-    ms = kb.device_ms(lambda: hm.hamming_matrix(a, b))
-    plain_ms = kb.device_ms(lambda: hm.hamming_matrix_plain(a, b))
-    lib_ms = kb.device_ms(lambda: torch._int_mm(A, Bt))
-    b_ms, b_by = kb.k2_bound(n, m)
-    log(f"phase 2 K2 hamming_matrix {n}x{m}: bit-equal with plain; device "
-        f"time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm "
-        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-        f"{b_ms / ms:.1%} of it reached)")
-    return dict(name="hamming_matrix", route="cuda",
-                source="slam_dynamic_tpu_torch/csrc/kernels.cu",
-                replaces="slam_dynamic_tpu/ops/pallas_hamming.py:42",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+    return (kb.device_ms(lambda: hm.hamming_matrix(a, b)),
+            kb.device_ms(lambda: hm.hamming_matrix_plain(a, b)),
+            kb.device_ms(lambda: torch._int_mm(A, Bt)),
+            *kb.k2_bound(a.shape[0], b.shape[0]))
 
 
 def track_frames(system, world, n_frames):
@@ -229,7 +254,7 @@ def phase_chunk(gm, hm, kb):
     gm.launches = 0
     hm.launches = 0
     r = bench.run(CHUNK_FRAMES, CHUNK, seed=SEED,
-                  first_warm_chunk=lambda: kb.recording_k1(calls))
+                  warm_chunk=lambda: kb.recording_k1(calls))
     launches = {"gated_match": gm.launches, "hamming_matrix": hm.launches}
     system = r["system"]
     tracker, loop = system.tracker, system.loop
@@ -272,6 +297,141 @@ def phase_chunk(gm, hm, kb):
     return launches
 
 
+def status_changes(history):
+    """The steps at which the box tracker's statuses changed, as
+    (first frame finalized, statuses)."""
+    out, last = [], None
+    for fids, status in history:
+        if status != last and fids:
+            out.append((fids[0], status))
+            last = status
+    return out
+
+
+def phase_dynamic_chunk(gm, hm, kb, k2_err):
+    """The dynamic scene on the chunked path, as ``bench.py --dynamic``."""
+    import numpy as np
+    import torch
+    from slam_dynamic_tpu_torch import bench
+
+    history, k2_calls, k2_after = [], [], []
+
+    def on_step(system, new):
+        history.append(([s.frame_id for s in new],
+                        tuple(int(x) for x in system.boxes.status)))
+        k2_after.append((hm.launches, any(s.is_keyframe for s in new)))
+
+    gm.launches = 0
+    hm.launches = 0
+    # K2's inputs are copied from the second warm chunk's three
+    # classifications: the first with a reference frame (the first chunk
+    # classifies against the placeholder)
+    r = bench.run(CHUNK_FRAMES, CHUNK, seed=SEED, dynamic=True,
+                  warm_chunk=lambda: kb.recording_k2(k2_calls),
+                  warm_index=1, on_step=on_step)
+    launches = {"gated_match": gm.launches, "hamming_matrix": hm.launches}
+    # K2 launches per chunk after the first: the classifications, and
+    # the keyframe work of the frames finalized in that call
+    per_chunk = [(n - m, kf) for (m, _), (n, kf)
+                 in zip(k2_after, k2_after[1:])]
+    cls_only = [n for n, kf in per_chunk if not kf]
+    system = r["system"]
+    tracker = system.tracker
+    n_lost = sum(s.state != "OK" for s in r["stats"])
+    ms = np.sort(r["step_ms"])
+    ate_mm = r["ate_m"] * 1e3
+    changes = status_changes(history)
+    confirmed = [fids for fids, st in history if 2 in st]
+    log(f"phase 6 System.track_chunk dynamic scene 640x480 x {CHUNK_FRAMES} "
+        f"frames, C = {CHUNK}, one chunk in flight, classification every "
+        f"{system.cfg.dynamic.classify_every_chunked}nd chunk frame: "
+        f"{r['fps']:.2f} fps over {r['n_timed']} timed frames, chunk p50 "
+        f"{np.median(ms):.1f} ms, p90 {ms[int(len(ms) * 0.9)]:.1f} ms, "
+        f"keyframes {sum(s.is_keyframe for s in r['stats'])}, LOST frames "
+        f"{n_lost}, ATE {ate_mm:.3f} mm, trajectory {r['n_traj']} frames, "
+        f"fused dispatches {tracker.dispatches}, packet readbacks "
+        f"{tracker.packet_reads}, K2 launches in the chunks that made no "
+        f"keyframe {cls_only}, launches {launches}")
+    log(f"  box statuses (first frame finalized, statuses): {changes}")
+    if n_lost or ate_mm > 30.0 or min(launches.values()) <= 0:
+        raise AssertionError("dynamic chunk phase failed its checks")
+    if tracker.packet_reads != tracker.dispatches:
+        raise AssertionError(f"{tracker.packet_reads} packet readbacks for "
+                             f"{tracker.dispatches} fused dispatches")
+    if not cls_only or any(n != 3 for n in cls_only) \
+            or any(n < 3 for n, _ in per_chunk) or len(k2_calls) != 3:
+        raise AssertionError(f"K2 launches per chunk {per_chunk}, "
+                             f"{len(k2_calls)} classifications copied: not "
+                             "3 per chunk")
+    if not confirmed or max(confirmed[0]) >= OBJECT_LEAVES:
+        raise AssertionError("the moving object was not confirmed dynamic "
+                             f"before frame {OBJECT_LEAVES}")
+    times = []
+    for a, b in k2_calls:
+        got, ref = hm.hamming_matrix(a, b), hm.hamming_matrix_plain(a, b)
+        torch.cuda.synchronize()
+        k2_err = max(k2_err, int((got - ref).abs().max()))
+        if not torch.equal(got, ref):
+            raise AssertionError("K2 on the classification's inputs: kernel "
+                                 "!= plain")
+        times.append(k2_times(hm, kb, a, b))
+    ms_k, ms_p, ms_l, b_ms, b_by = (
+        [float(np.mean([t[i] for t in times])) for i in range(4)]
+        + [times[0][4]])
+    a, b = k2_calls[0]
+    log(f"  K2 on the {len(k2_calls)} classifications of the second chunk "
+        f"({a.shape[0]} x {b.shape[0]}, {int((a != 0).any(1).sum())} and "
+        f"{int((b != 0).any(1).sum())} nonzero descriptors): bit-equal "
+        f"with plain; device time kernel {ms_k:.6f} ms, plain {ms_p:.4f} "
+        f"ms, torch._int_mm {ms_l:.6f} ms, bound {b_ms:.5f} ms ({b_by}, "
+        f"{b_ms / ms_k:.1%} of it reached)")
+    row = dict(name="hamming_matrix", route="cuda",
+               source="slam_dynamic_tpu_torch/csrc/kernels.cu",
+               replaces="slam_dynamic_tpu/ops/pallas_hamming.py:42",
+               max_abs_err=k2_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+               bound_by=b_by, library_ms=ms_l)
+    return launches, row
+
+
+def phase_dynamic_frame(gm, hm):
+    """The per-frame dynamic path, both forms of the dynamic step."""
+    import numpy as np
+    from slam_dynamic_tpu_torch import bench
+    from slam_dynamic_tpu_torch.frontend import tracking
+
+    forms, statuses = [], []
+    orig = tracking.fused_track_step_dyn
+
+    def spy(*args, **kw):
+        forms.append(bool(kw["classify"]))
+        return orig(*args, **kw)
+
+    gm.launches = 0
+    hm.launches = 0
+    tracking.fused_track_step_dyn = spy
+    try:
+        r = bench.run(DYN_FRAMES, 1, seed=SEED, dynamic=True,
+                      classify_every=2,
+                      on_step=lambda s, new: statuses.append(
+                          tuple(int(x) for x in s.boxes.status)))
+    finally:
+        tracking.fused_track_step_dyn = orig
+    launches = {"gated_match": gm.launches, "hamming_matrix": hm.launches}
+    n_lost = sum(s.state != "OK" for s in r["stats"])
+    n_cls = sum(forms)
+    first2 = next((i for i, st in enumerate(statuses) if 2 in st), None)
+    log(f"phase 7 System.track_rgbd dynamic scene 640x480 x {DYN_FRAMES} "
+        f"frames, classification every 2nd frame: {r['fps']:.2f} fps over "
+        f"{r['n_timed']} timed frames, p50 {np.median(r['step_ms']):.2f} ms, "
+        f"LOST frames {n_lost}, ATE {r['ate_m'] * 1e3:.3f} mm, dynamic "
+        f"steps classifying {n_cls} / light {len(forms) - n_cls}, box status "
+        f"{statuses[-1]} (2 from frame {first2}), launches {launches}")
+    if n_lost or not 0 < n_cls < len(forms) or first2 is None \
+            or min(launches.values()) <= 0:
+        raise AssertionError("dynamic per-frame phase failed its checks")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -303,15 +463,20 @@ def main():
         f"{' '.join(f'{x:.2f}' for x in os.getloadavg())}")
     dev = torch.device("cuda")
     k1_err = phase_k1(dev, gm, kb, hm.INVALID)
-    k2_row = phase_k2(dev, hm, kb)
+    k2_err = phase_k2(dev, hm, kb)
     frame_launches, calls = phase_system(gm, hm, kb)
-    rows = [phase_k1_path(gm, kb, calls, k1_err), k2_row]
+    k1_row = phase_k1_path(gm, kb, calls, k1_err)
     chunk_launches = phase_chunk(gm, hm, kb)
+    dyn_launches, k2_row = phase_dynamic_chunk(gm, hm, kb, k2_err)
+    dyn_frame_launches = phase_dynamic_frame(gm, hm)
+    rows = [k1_row, k2_row]
     for r in rows:
         r["launches"] = chunk_launches[r["name"]]
         r["launches_per_phase"] = {
             "track_rgbd": frame_launches[r["name"]],
-            "track_chunk": chunk_launches[r["name"]]}
+            "track_chunk": chunk_launches[r["name"]],
+            "track_chunk_dynamic": dyn_launches[r["name"]],
+            "track_rgbd_dynamic": dyn_frame_launches[r["name"]]}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_per_phase"]

@@ -1,7 +1,8 @@
 """Throughput of the port on the bench world, as ``bench.py`` runs the
 JAX package with no arguments.
 
-    python -m slam_dynamic_tpu_torch.bench [--frames 120] [--chunk 6] [--cpu]
+    python -m slam_dynamic_tpu_torch.bench [--frames 120] [--chunk 6]
+        [--dynamic [--classify-every 2]] [--cpu]
 
 The synthetic 640x480 RGB-D world with 1000 ORB features and the
 capacities of ``bench.py:250-261``, with its default pipelined readback
@@ -10,7 +11,11 @@ chunking as ``bench.py``'s ``_run_chunk`` (:412-510) does: per-frame
 bootstrap until tracking is OK, up to 3 warm chunks with a keyframe at
 least every 3 frames, the configured cadence back, the timed window,
 ``flush``, ATE. ``--chunk 1`` runs the per-frame path (10 warm frames,
-then the timed window). Prints one JSON line with ``bench.py``'s keys:
+then the timed window). ``--dynamic`` runs ``bench.py --dynamic``'s
+dynamic scene (:114-123): the moving object, its boxes fed every frame
+in view, the fused H/F classification on every 2nd chunk frame
+(``classify_every_chunked``) or, per frame, every ``--classify-every``-th
+frame (default 2, as ``bench.py``). Prints one JSON line with ``bench.py``'s keys:
 metric, value (tracked frames per second), unit, vs_baseline (fps / 30,
 the camera's rate) and ate_m. Runs on the card; ``--cpu`` runs the plain
 PyTorch path on the CPU.
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 from .backend.loop_closing import _detect_device
-from .io.bench_world import bench_world
+from .io.bench_world import bench_world, detections
 from .io.evo import ate_rmse
 from .models import vocabulary as voc_mod
 from .system import System
@@ -56,14 +61,20 @@ def _warm_loop_detect(system):
 
 
 def run(frames: int = 120, chunk: int = 6, device=None, seed: int = 0,
-        first_warm_chunk=contextlib.nullcontext) -> dict:
-    """Track the bench world and time it. ``first_warm_chunk`` is a
-    context manager factory entered around the first warm chunk (or warm
-    frame). Returns the System, the stats of every frame, the timed
-    steps' host times, fps and ATE."""
-    seq, gray8, depth16, cfg = bench_world(frames, seed)
+        warm_chunk=contextlib.nullcontext, warm_index: int = 0,
+        dynamic: bool = False, classify_every: int = 2,
+        on_step=None) -> dict:
+    """Track the bench world and time it. ``warm_chunk`` is a context
+    manager factory entered around warm chunk (or warm frame) number
+    ``warm_index``; ``on_step(system, stats)`` is called after every step
+    with the stats it finalized, outside the timed span. Returns the System, the stats of every frame, the
+    timed steps' host times, fps and ATE."""
+    seq, gray8, depth16, cfg = bench_world(frames, seed, dynamic=dynamic)
     cfg = cfg.replace(tracking=dataclasses.replace(
         cfg.tracking, pipeline_depth=PIPELINE_DEPTH))
+    if dynamic:
+        cfg = cfg.replace(dynamic=dataclasses.replace(
+            cfg.dynamic, classify_every=classify_every))
     warm_cfg = cfg.replace(tracking=dataclasses.replace(
         cfg.tracking, max_frames_between_kf=3))
     system = System(warm_cfg, device=device)
@@ -71,25 +82,33 @@ def run(frames: int = 120, chunk: int = 6, device=None, seed: int = 0,
     C = chunk
     stats = []
 
+    def det(i):
+        return detections(seq, i) if dynamic else None
+
     def step(i):
         if C == 1:
-            stats.append(system.track_rgbd(gray8[i], depth16[i], ts[i]))
+            new = [system.track_rgbd(gray8[i], depth16[i], ts[i], det(i))]
         else:
-            stats.extend(system.track_chunk(gray8[i:i + C],
-                                            depth16[i:i + C], ts[i:i + C]))
-        return i + C
+            new = system.track_chunk(
+                gray8[i:i + C], depth16[i:i + C], ts[i:i + C],
+                [det(i + j) for j in range(C)] if dynamic else None)
+        stats.extend(new)
+        return i + C, new
 
     i = 0
     if C == 1:
         n_warm_steps = min(10, frames - 1)
     else:
         while system.tracker.state != "OK" and i < 6:
-            stats.append(system.track_rgbd(gray8[i], depth16[i], ts[i]))
+            stats.append(system.track_rgbd(gray8[i], depth16[i], ts[i],
+                                           det(i)))
             i += 1
         n_warm_steps = max(0, min(3, (frames - i) // C - 1))
     for w in range(n_warm_steps):
-        with first_warm_chunk() if w == 0 else contextlib.nullcontext():
-            i = step(i)
+        with warm_chunk() if w == warm_index else contextlib.nullcontext():
+            i, new = step(i)
+        if on_step:
+            on_step(system, new)
     system.cfg = cfg
     system.tracker.cfg = cfg
     _warm_loop_detect(system)
@@ -98,8 +117,10 @@ def run(frames: int = 120, chunk: int = 6, device=None, seed: int = 0,
     t0 = time.perf_counter()
     while i + C <= frames:
         f0 = time.perf_counter()
-        i = step(i)
+        i, new = step(i)
         step_s.append(time.perf_counter() - f0)
+        if on_step:
+            on_step(system, new)
     stats.extend(system.tracker.flush())
     _sync(system)
     wall = time.perf_counter() - t0
@@ -119,12 +140,18 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=120)
     ap.add_argument("--chunk", type=int, default=6,
                     help="frames per fused call; 1 runs the per-frame path")
+    ap.add_argument("--dynamic", action="store_true",
+                    help="the dynamic scene: moving object, its boxes, "
+                         "fused H/F box classification")
+    ap.add_argument("--classify-every", type=int, default=2,
+                    help="--dynamic, per frame: classify every Nth frame")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the plain PyTorch path)")
     args = ap.parse_args(argv)
     if args.chunk < 1:
         ap.error("--chunk must be >= 1")
-    r = run(args.frames, args.chunk, device="cpu" if args.cpu else None)
+    r = run(args.frames, args.chunk, device="cpu" if args.cpu else None,
+            dynamic=args.dynamic, classify_every=args.classify_every)
     ms = np.sort(r["step_ms"])
     what = "frame" if args.chunk == 1 else f"chunk (={args.chunk} frames)"
     print(f"[bench] {what} ms: p50 {np.median(ms):.1f} p90 "
@@ -132,8 +159,9 @@ def main(argv=None) -> int:
     dev = ("CPU" if args.cpu else torch.cuda.get_device_name(0))
     mode = ("per-frame" if args.chunk == 1
             else f"chunk={args.chunk} frames/call")
-    out = {"metric": f"tracked frames/s ({mode}, 640x480 RGB-D, full SLAM, "
-                     f"PyTorch port on {dev})",
+    kind = "RGB-D dynamic-scene" if args.dynamic else "RGB-D"
+    out = {"metric": f"tracked frames/s ({mode}, 640x480 {kind}, full "
+                     f"SLAM, PyTorch port on {dev})",
            "value": round(r["fps"], 2), "unit": "fps",
            "vs_baseline": round(r["fps"] / CAMERA_FPS, 3),
            "ate_m": round(r["ate_m"], 5)}

@@ -1,9 +1,12 @@
 """Carry state between the JAX package and the port.
 
 This system has no learned weights on the tracking path: what a run
-carries is the map, the ORB pattern and the config. These helpers take a
-JAX ``MapState`` (``slam_dynamic_tpu/worldmap/state.py:27``) as a dict of
-numpy arrays into the port's ``MapState`` and back, and rebuild the config
+carries is the map, the frames, the box tracker, the ORB pattern and the
+config. These helpers take a JAX ``MapState``
+(``slam_dynamic_tpu/worldmap/state.py:27``) as a dict of numpy arrays
+into the port's ``MapState`` and back, a ``FrameData``
+(``frontend/frame.py:25``) likewise, the box tracker's state
+(``frontend/boxtrack.py:18``) by its fields, and rebuild the config
 dataclass tree from a plain dict (``dataclasses.asdict`` of either
 package's ``SystemConfig``). Nothing here imports JAX.
 """
@@ -17,6 +20,8 @@ import torch
 
 from . import config as cfg_mod
 from . import resolve_device
+from .frontend.boxtrack import BoxTrackerState
+from .frontend.frame import FrameData
 from .worldmap.state import MapState
 
 _DESC_FIELDS = ("kf_kp_desc", "lm_desc")
@@ -45,6 +50,27 @@ def map_state_to_numpy(m: MapState) -> dict:
             a = a.view(np.uint32)
         out[name] = a
     return out
+
+
+def frame_data_from_numpy(arrays: dict, device=None) -> FrameData:
+    """FrameData arrays (name -> numpy, e.g. a JAX FrameData's fields) ->
+    the port's FrameData; uint32 descriptors become int32 bit views."""
+    device = resolve_device(device)
+    out = {}
+    for name in FrameData._fields:
+        a = np.asarray(arrays[name])
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[name] = torch.from_numpy(np.array(a)).to(device)
+    return FrameData(**out)
+
+
+def box_state_from_numpy(state) -> BoxTrackerState:
+    """A box tracker state of either package (an object with the fields of
+    ``BoxTrackerState``) -> the port's, as fresh numpy copies."""
+    kw = {f.name: np.array(getattr(state, f.name))
+          for f in dataclasses.fields(BoxTrackerState) if f.name != "next_id"}
+    return BoxTrackerState(**kw, next_id=int(state.next_id))
 
 
 def _build(cls, value):

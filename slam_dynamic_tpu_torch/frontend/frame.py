@@ -1,11 +1,14 @@
 """Per-frame feature container and the host-built frame.
 
 Port of ``slam_dynamic_tpu/frontend/frame.py`` (``FrameData`` :25,
-``Frame``, ``build_frame``, ``pad_frame_data`` :163). All N keypoint slots
+``Frame``, ``keypoints_in_boxes`` :73, ``build_frame`` :88,
+``empty_frame_data`` :151, ``pad_frame_data`` :163), and ``inside_boxes``,
+the one in-box test of the port. All N keypoint slots
 are kept and ``static_mask`` carries the dynamic-box partition, so shapes
 stay fixed. ``build_frame`` serves the frames the tracker builds outside
-the fused step (initialization and LOST frames): RGB-D, without boxes
-(detections need the dynamic-object module, not ported yet).
+the fused step (initialization and LOST frames): RGB-D, with the
+detector's boxes quarantining the keypoints inside them (the pixel
+``mask`` path is not ported yet).
 """
 from __future__ import annotations
 
@@ -55,11 +58,32 @@ class Frame:
     ref_gen: int = 0                        # slot generation at dispatch
 
 
+def inside_boxes(xy: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """[B, N] bool: keypoint n lies inside box b (x0, y0, x1, y1),
+    edges included."""
+    return ((xy[None, :, 0] >= boxes[:, None, 0])
+            & (xy[None, :, 0] <= boxes[:, None, 2])
+            & (xy[None, :, 1] >= boxes[:, None, 1])
+            & (xy[None, :, 1] <= boxes[:, None, 3]))
+
+
+def keypoints_in_boxes(xy: torch.Tensor, valid: torch.Tensor, boxes,
+                       box_valid) -> torch.Tensor:
+    """[N] bool: the keypoint lies inside an active box (host arrays)."""
+    if boxes is None or len(boxes) == 0 or not np.asarray(box_valid).any():
+        return torch.zeros(xy.shape[0], dtype=torch.bool, device=xy.device)
+    b = torch.as_tensor(np.asarray(boxes, np.float32), device=xy.device)
+    bv = torch.as_tensor(np.asarray(box_valid, bool), device=xy.device)
+    return (inside_boxes(xy, b) & bv[:, None]).any(0) & valid
+
+
 def build_frame(cfg: SystemConfig, cam: Intrinsics, gray: np.ndarray,
-                frame_id: int, timestamp: float,
-                depth_map: np.ndarray) -> Frame:
+                frame_id: int, timestamp: float, depth_map: np.ndarray,
+                boxes: Optional[np.ndarray] = None,
+                box_valid: Optional[np.ndarray] = None) -> Frame:
     """Construct a frame from host images. uint16 depth is scaled to metres
-    on the host, as the reference's ``build_frame`` does."""
+    on the host, as the reference's ``build_frame`` does; keypoints inside
+    an active box [B, 4] are quarantined (``static_mask`` False)."""
     dev = cam.fx.device
     depth_map = np.asarray(depth_map)
     if depth_map.dtype == np.uint16:
@@ -75,10 +99,28 @@ def build_frame(cfg: SystemConfig, cam: Intrinsics, gray: np.ndarray,
         kp.xy, kp.valid, cam.bf)
     data = FrameData(xy=xy, xy_raw=kp.xy, level=kp.level, angle=kp.angle,
                      response=kp.response, desc=kp.desc, valid=kp.valid,
-                     ur=sm.u_right, depth=sm.depth, static_mask=kp.valid,
+                     ur=sm.u_right, depth=sm.depth,
+                     static_mask=kp.valid & ~keypoints_in_boxes(
+                         xy, kp.valid, boxes, box_valid),
                      scale=scale)
     data = pad_frame_data(data, cfg.capacity.max_keypoints)
     return Frame(data=data, frame_id=frame_id, timestamp=timestamp)
+
+
+def empty_frame_data(n_slots: int, device=None) -> FrameData:
+    """All-invalid FrameData (the placeholder reference frame of the fused
+    dynamic step before a reference frame exists)."""
+    z2 = torch.zeros((n_slots, 2), device=device)
+    z1 = torch.zeros(n_slots, device=device)
+    return FrameData(
+        xy=z2, xy_raw=z2, level=torch.zeros(n_slots, dtype=torch.int32,
+                                            device=device),
+        angle=z1, response=z1,
+        desc=torch.zeros((n_slots, 8), dtype=torch.int32, device=device),
+        valid=torch.zeros(n_slots, dtype=torch.bool, device=device),
+        ur=z1 - 1.0, depth=z1 - 1.0,
+        static_mask=torch.zeros(n_slots, dtype=torch.bool, device=device),
+        scale=z1 + 1.0)
 
 
 def pad_frame_data(fd: FrameData, n_slots: int) -> FrameData:

@@ -2,20 +2,24 @@
 
 Port of ``slam_dynamic_tpu/frontend/fused.py:54-279``
 (``build_frame_data``, ``_predict_inside``, ``_mm_track``,
-``_track_stages``, ``fused_track_step``) and of the static-scene branch
-of temporal chunking (``fused_track_chunk`` :328 through ``_chunk_body``
-:400 with ``dyn=None``). Per frame:
+``_track_stages``, ``fused_track_step``), of temporal chunking
+(``fused_track_chunk`` :328 and ``fused_track_chunk_dyn`` :483 through
+``_chunk_body`` :400) and of the dynamic-scene step
+(``fused_track_step_dyn`` :536). Per frame:
 
-  extract -> undistort -> depth lookup -> box quarantine -> track against
-  the last frame's landmarks (motion model; the narrow pass and the 2x
-  wide fallback both run, the result is picked by mask) -> local-map
-  selection -> track against the local map -> landmark stat bumps ->
-  keyframe-decision counts
+  extract -> undistort -> depth lookup -> box quarantine -> [dynamic
+  scenes: H/F box classification against the reference frame, feature
+  reinstatement] -> track against the last frame's landmarks (motion
+  model; the narrow pass and the 2x wide fallback both run, the result
+  is picked by mask) -> local-map selection -> track against the local
+  map -> landmark stat bumps -> keyframe-decision counts [-> per-box 3D
+  state]
 
 and everything the host state machine needs comes back as ONE [28]-float
 packet (``fused.py:45-51``): 0 n_mm, 1 n_map, 2 close_bound,
-3 close_unbound, 4:13 R, 13:16 t, 16:25 reference-KF R, 25:28 its t. No
-step in between waits for the device.
+3 close_unbound, 4:13 R, 13:16 t, 16:25 reference-KF R, 25:28 its t; a
+dynamic step appends the B box verdicts and the [B, 16] per-box 3D state
+(28 + 17 B floats). No step in between waits for the device.
 """
 from __future__ import annotations
 
@@ -31,8 +35,10 @@ from ..optim.pose_opt import optimize_pose
 from ..utils.camera import Intrinsics, project, undistort_points
 from ..worldmap.state import MapState
 from . import tracking_ops as tops
+from .dynamics_ops import (box_3d_state, classify_boxes,
+                           reinstate_features)
 from .extractor import extract
-from .frame import FrameData, pad_frame_data
+from .frame import FrameData, inside_boxes, pad_frame_data
 
 
 class FusedOut(NamedTuple):
@@ -61,11 +67,7 @@ def build_frame_data(cam: Intrinsics, image, aux, boxes, box_active,
     xy = undistort_points(cam, kp.xy)
     scale = scale_factor ** kp.level.to(torch.float32)
     sm = depth_from_rgbd(aux, kp.xy, kp.valid, cam.bf)
-    inside = ((xy[:, None, 0] >= boxes[None, :, 0])
-              & (xy[:, None, 0] <= boxes[None, :, 2])
-              & (xy[:, None, 1] >= boxes[None, :, 1])
-              & (xy[:, None, 1] <= boxes[None, :, 3])
-              & box_active[None, :]).any(dim=1)
+    inside = (inside_boxes(xy, boxes) & box_active[:, None]).any(0)
     fd = FrameData(xy=xy, xy_raw=kp.xy, level=kp.level, angle=kp.angle,
                    response=kp.response, desc=kp.desc, valid=kp.valid,
                    ur=sm.u_right, depth=sm.depth,
@@ -201,40 +203,150 @@ def fused_track_step(m: MapState, cam: Intrinsics, bounds, image, aux,
                          max_kf, max_lm, n_levels)
 
 
+def _pose_seed(seed, R_last, t_last):
+    """Per-frame RANSAC seed derived on the device from the chained pose
+    (``fused.py:573-575``): a fixed device base plus float-to-int32 casts
+    of pose sums, so no per-frame seed is uploaded."""
+    return (seed + (t_last.abs() * 8388608.0).sum().to(torch.int32)
+            + (R_last.abs() * 65536.0).sum().to(torch.int32))
+
+
+def _classify_and_reinstate(cam, fd, boxes, box_active, dyn, R_last,
+                            t_last, classify: bool, extra_seed: int = 0):
+    """The dynamic half of a frame: H/F classification of every active box
+    against the reference frame (verdict 0 where it is skipped or no
+    reference exists), then the keypoints of boxes that are or just became
+    static, unless confirmed dynamic by the host, are reinstated.
+    Returns (fd, verdict [B] int32)."""
+    status = dyn["box_status"]
+    if classify:
+        with record_function("classify"):
+            seed = _pose_seed(dyn["seed"], R_last, t_last) + extra_seed
+            v = classify_boxes(cam, dyn["ref_fd"], fd, boxes, box_active,
+                               n_hyp=dyn["n_hyp"], seed=seed)
+            verdict = torch.where(dyn["have_ref"] > 0, v.verdict,
+                                  torch.zeros_like(v.verdict))
+    else:
+        verdict = torch.zeros_like(status)
+    static_now = box_active & (status != 2) & ((status == 1) | (verdict == 1))
+    return reinstate_features(fd, boxes, static_now), verdict
+
+
+def _dyn_packet(cam, out: "FusedOut", verdict, boxes, box_active):
+    """Append the verdicts and the per-box 3D state to the packet."""
+    with record_function("box3d"):
+        b3d = box_3d_state(cam, out.fd, boxes, box_active)
+    return out._replace(packed=torch.cat(
+        [out.packed, verdict.to(torch.float32), b3d.reshape(-1)]))
+
+
+def fused_track_step_dyn(m: MapState, cam: Intrinsics, bounds, image, aux,
+                         boxes, box_active, box_status, ref_fd: FrameData,
+                         have_ref, last_obs_lm, R_last, t_last, R_prev2,
+                         t_prev2, has_vel, ref_kf, orb_cfg: ORBConfig,
+                         mm_radius, local_radius, depth_th, scale_factor,
+                         min_inliers_track, seed, max_kf: int = 16,
+                         max_lm: int = 4096, n_levels: int = 8,
+                         n_slots: int = 0, n_hyp: int = 256,
+                         depth_scale=None, classify: bool = True
+                         ) -> FusedOut:
+    """The dynamic-scene step (``fused.py:536``): frame build with the
+    boxes quarantining unless the host found them static (status 1), H/F
+    classification of every box against ``ref_fd`` (``classify=False``
+    on the stride's skipped frames: verdicts 0, no RANSAC), reinstatement,
+    tracking and the per-box 3D state, in one call; the packet is
+    [28 + B + 16 B]. ``box_status`` [B] int32 is the host's belief and
+    ``seed`` a fixed device int32 base."""
+    with record_function("frame_build"):
+        fd = build_frame_data(cam, image, aux, boxes,
+                              box_active & (box_status != 1), orb_cfg,
+                              scale_factor, n_slots=n_slots,
+                              depth_scale=depth_scale)
+    dyn = dict(box_status=box_status, ref_fd=ref_fd, have_ref=have_ref,
+               seed=seed, n_hyp=n_hyp)
+    fd, verdict = _classify_and_reinstate(cam, fd, boxes, box_active, dyn,
+                                          R_last, t_last, classify)
+    R_pred, t_pred = _predict_inside(R_last, t_last, R_prev2, t_prev2,
+                                     has_vel)
+    out = _track_stages(m, cam, bounds, fd, last_obs_lm, R_pred, t_pred,
+                        R_last, t_last, ref_kf, mm_radius, local_radius,
+                        depth_th, scale_factor, min_inliers_track, True,
+                        max_kf, max_lm, n_levels)
+    return _dyn_packet(cam, out, verdict, boxes, box_active)
+
+
 def fused_track_chunk(m: MapState, cam: Intrinsics, bounds, images, auxs,
                       boxes, box_active, last_obs_lm, R_last, t_last,
                       R_prev2, t_prev2, has_vel, ref_kf, orb_cfg: ORBConfig,
                       mm_radius, local_radius, depth_th, scale_factor,
                       min_inliers_track, max_kf: int = 16,
                       max_lm: int = 4096, n_levels: int = 8,
-                      n_slots: int = 0, depth_scale=None):
-    """C consecutive RGB-D frames in one call (``fused.py:328``, the
-    ``dyn=None`` branch of ``_chunk_body`` :400). images, auxs [C, H, W];
-    boxes [C, B, 4]; box_active [C, B].
+                      n_slots: int = 0, depth_scale=None, dyn=None):
+    """C consecutive RGB-D frames in one call (``fused.py:328``, through
+    ``_chunk_body`` :400). images, auxs [C, H, W]; boxes [C, B, 4];
+    box_active [C, B].
 
     Frames chain on the device as they do across calls: frame j+1 takes
     frame j's pose as its motion-model base, frame j's landmark ids as its
     last observations, and the landmark visible/found counters carry
     through the chunk. The map snapshot is fixed for the whole chunk.
-    Returns (the C FusedOut, their packets stacked [C, 28] for one
-    readback)."""
+
+    ``dyn`` (see ``fused_track_chunk_dyn``) switches on the dynamic-scene
+    branch. Returns (the C FusedOut, their packets stacked [C, 28] or
+    [C, 28 + 17 B] for one readback)."""
     outs = []
     obs, Rl, tl, Rp2, tp2, hv = (last_obs_lm, R_last, t_last, R_prev2,
                                  t_prev2, has_vel)
     mm = m
     one = torch.ones_like(has_vel)
     for j in range(images.shape[0]):
+        quarantine = box_active[j] if dyn is None else \
+            box_active[j] & (dyn["box_status"] != 1)
         with record_function("frame_build"):
             fd = build_frame_data(cam, images[j], auxs[j], boxes[j],
-                                  box_active[j], orb_cfg, scale_factor,
+                                  quarantine, orb_cfg, scale_factor,
                                   n_slots=n_slots, depth_scale=depth_scale)
+        if dyn is not None:
+            # every chunk frame classifies against the chunk-start
+            # reference frame; classification sees every box (a static
+            # box can turn dynamic)
+            fd, verdict = _classify_and_reinstate(
+                cam, fd, boxes[j], box_active[j], dyn, Rl, tl,
+                classify=j % dyn["classify_every"] == 0, extra_seed=j)
         R_pred, t_pred = _predict_inside(Rl, tl, Rp2, tp2, hv)
         out = _track_stages(mm, cam, bounds, fd, obs, R_pred, t_pred, Rl, tl,
                             ref_kf, mm_radius, local_radius, depth_th,
                             scale_factor, min_inliers_track, True, max_kf,
                             max_lm, n_levels)
+        if dyn is not None:
+            out = _dyn_packet(cam, out, verdict, boxes[j], box_active[j])
         outs.append(out)
         mm = mm._replace(lm_visible=out.lm_visible, lm_found=out.lm_found)
         obs, Rp2, tp2, Rl, tl = out.obs_lm, Rl, tl, out.R, out.t
         hv = one
     return outs, torch.stack([o.packed for o in outs])
+
+
+def fused_track_chunk_dyn(m: MapState, cam: Intrinsics, bounds, images,
+                          auxs, boxes, box_active, box_status,
+                          ref_fd: FrameData, have_ref, last_obs_lm, R_last,
+                          t_last, R_prev2, t_prev2, has_vel, ref_kf,
+                          orb_cfg: ORBConfig, mm_radius, local_radius,
+                          depth_th, scale_factor, min_inliers_track, seed,
+                          max_kf: int = 16, max_lm: int = 4096,
+                          n_levels: int = 8, n_slots: int = 0,
+                          n_hyp: int = 256, depth_scale=None,
+                          classify_every: int = 1):
+    """Dynamic-scene chunk (``fused.py:483``): ``fused_track_chunk`` with
+    each frame's H/F classification against the chunk-start reference
+    frame on every ``classify_every``-th chunk frame (the others emit
+    verdict 0), reinstatement by the host's start-of-chunk
+    ``box_status``, and the [C, 28 + B + 16 B] packet."""
+    dyn = dict(box_status=box_status, ref_fd=ref_fd, have_ref=have_ref,
+               seed=seed, n_hyp=n_hyp, classify_every=classify_every)
+    return fused_track_chunk(
+        m, cam, bounds, images, auxs, boxes, box_active, last_obs_lm,
+        R_last, t_last, R_prev2, t_prev2, has_vel, ref_kf, orb_cfg,
+        mm_radius, local_radius, depth_th, scale_factor, min_inliers_track,
+        max_kf=max_kf, max_lm=max_lm, n_levels=n_levels, n_slots=n_slots,
+        depth_scale=depth_scale, dyn=dyn)

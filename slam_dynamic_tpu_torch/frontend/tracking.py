@@ -7,18 +7,20 @@ Port of ``slam_dynamic_tpu/frontend/tracking.py:131`` (``Tracker``):
 ``_ChunkPacket`` and ``_PacketRow`` :82-108, ``_finalize_one`` :494,
 ``_finalize_pending`` :516 and ``flush`` :583 (one ``flush`` here),
 ``_bookkeep_pipelined`` :547 (``_record_pose``),
-``_initialize`` :723, ``_post_track`` :975, the keyframe decision
-``_need_keyframe_counts`` :1055, ``_create_keyframe`` :1070, the BoW
-fallback (``_bow_recover`` :55, ``_bow_fallback``), and LOST handling
-with the reset policy of ``_relocalize_then_track`` :833 for a tracker
-without a relocalizer. The branchy control stays on the host; per frame
-the device sees one fused step and the host reads one [28]-float packet
-(one [C, 28] packet per chunk). Keyframe frames add one mapping-stage
-call and the keyframe hook (loop detection, wired by the System).
+``_initialize`` :723, ``_post_track`` :975 (with ``_split_dyn_packet`` :507),
+the keyframe decision ``_need_keyframe_counts`` :1055,
+``_create_keyframe`` :1070, the BoW fallback (``_bow_recover`` :55,
+``_bow_fallback``), and LOST handling with the reset policy of
+``_relocalize_then_track`` :833 for a tracker without a relocalizer. The
+branchy control stays on the host; per frame the device sees one fused
+step and the host reads one packet ([28] floats, [28 + 17 B] with the
+dynamic-scene ``dyn`` argument; one [C, ...] packet per chunk). Keyframe
+frames add one mapping-stage call and the keyframe hook (loop detection,
+wired by the System).
 
-Not ported yet: the adaptive pipeline depth, stereo and mono, dynamic
-boxes, localization-only mode, relocalization and tracking a host-built
-frame (``_track`` :926). States: NOT_INITIALIZED -> OK <-> LOST.
+Not ported yet: the adaptive pipeline depth, stereo and mono,
+localization-only mode, relocalization and tracking a host-built frame
+(``_track`` :926). States: NOT_INITIALIZED -> OK <-> LOST.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ from ..utils.camera import Intrinsics, undistorted_bounds
 from ..worldmap.keyframe_ops import make_keyframe
 from ..worldmap.state import MapState, empty_map, next_kf_slot
 from .frame import Frame, FrameData, build_frame
-from .fused import fused_track_chunk, fused_track_step
+from .fused import (fused_track_chunk, fused_track_chunk_dyn,
+                    fused_track_step, fused_track_step_dyn)
 
 
 @dataclasses.dataclass
@@ -46,6 +49,8 @@ class TrackStats:
     n_inliers_mm: int = 0
     n_inliers_map: int = 0
     is_keyframe: bool = False
+    verdicts: object = None   # [B] box verdicts (dynamic scenes)
+    box3d: object = None      # [B, 16] per-box 3D state, raw (camera frame)
     frame_id: int = -1
     np_R: object = None       # camera pose (host numpy)
     np_t: object = None
@@ -141,7 +146,7 @@ class Tracker:
         # keyframe hook: k -> None, called after keyframe slot k is
         # inserted (loop detection, wired by the System)
         self.on_keyframe: Optional[Callable[[int], None]] = None
-        # pipelined and chunked modes: (frame, out) awaiting readback
+        # pipelined and chunked modes: (frame, out, dyn) awaiting readback
         self._pending = collections.deque()
         # fused tracking dispatches (one per frame or chunk) and the
         # device-to-host copies of their packets: equal once flushed
@@ -236,13 +241,43 @@ class Tracker:
         return Frame(data=out.fd, frame_id=frame_id, timestamp=timestamp,
                      ref_kf=ref[0], ref_gen=ref[1])
 
+    def _upload_boxes(self, boxes, box_active, C=None):
+        """Boxes [B, 4] and their active flags [B] (or C frames' of them)
+        on the device in one copy; the cached empty set when no frame has
+        a box."""
+        B = self.cfg.dynamic.max_boxes
+        per = [(boxes, box_active)] if C is None else list(
+            zip(boxes, box_active))
+        if not any(bx is not None and len(bx) for bx, _ in per):
+            dc = self._scalar_consts()
+            if C is None:
+                return dc["bx_empty"], dc["ba_empty"]
+            return self._chunk_empty_boxes(C)
+        pk = np.full((len(per), B, 5), -1.0, np.float32)
+        pk[:, :, 4] = 0.0
+        for j, (bx, ba) in enumerate(per):
+            if bx is None or not len(bx):
+                continue
+            nb = min(len(bx), B)
+            pk[j, :nb, :4] = bx[:nb]
+            pk[j, :nb, 4] = (ba[:nb] if ba is not None else np.ones(nb))
+        arr = torch.from_numpy(pk if C is not None else pk[0]).to(
+            self.device)
+        return arr[..., :4], arr[..., 4] > 0
+
     def step_images(self, gray: np.ndarray, depth: np.ndarray,
-                    frame_id: int, timestamp: float) -> TrackStats:
+                    frame_id: int, timestamp: float, boxes=None,
+                    box_active=None, dyn: Optional[dict] = None
+                    ) -> TrackStats:
         """Raw images in, one fused device step, one packed readback. Only
         valid while tracking is OK; other states build the frame on the
         host (initialization, LOST). With ``pipeline_depth`` > 0 the
         frame's readback waits until that many newer frames were
-        dispatched, and the stats returned are the oldest frame's."""
+        dispatched, and the stats returned are the oldest frame's.
+        ``boxes`` [B, 4] with ``box_active`` [B] quarantine keypoints;
+        ``dyn`` {ref_fd, have_ref, box_status, seed, classify} switches to
+        the dynamic-scene step (verdicts and per-box 3D state come back in
+        ``TrackStats.verdicts`` / ``box3d``)."""
         if self.state != "OK":
             self.flush()
             if self.state == "OK":
@@ -251,7 +286,7 @@ class Tracker:
                     "frame: tracking a host-built frame (Tracker._track) is "
                     "not ported yet (ROADMAP Queue 1, item 14)")
             frame = build_frame(self.cfg, self.cam, gray, frame_id,
-                                timestamp, depth)
+                                timestamp, depth, boxes, box_active)
             st = self._initialize(frame) \
                 if self.state == "NOT_INITIALIZED" else self._lost(frame)
             self._bookkeep(frame)
@@ -259,10 +294,20 @@ class Tracker:
         dc = self._scalar_consts()
         chain = self._chain_inputs()
         g_arr, d_arr, depth_scale = self._stage_inputs(gray, depth)
-        out = fused_track_step(
-            self.map, self.cam, self.bounds, g_arr, d_arr, dc["bx_empty"],
-            dc["ba_empty"], *chain, self._ref_kf_const(),
-            depth_scale=depth_scale, **self._track_kwargs())
+        bx, ba = self._upload_boxes(boxes, box_active)
+        if dyn is None:
+            out = fused_track_step(
+                self.map, self.cam, self.bounds, g_arr, d_arr, bx, ba,
+                *chain, self._ref_kf_const(), depth_scale=depth_scale,
+                **self._track_kwargs())
+        else:
+            out = fused_track_step_dyn(
+                self.map, self.cam, self.bounds, g_arr, d_arr, bx, ba,
+                dyn["box_status"], dyn["ref_fd"], dyn["have_ref"], *chain,
+                self._ref_kf_const(), seed=dyn["seed"],
+                n_hyp=self.cfg.dynamic.ransac_hypotheses,
+                depth_scale=depth_scale, classify=dyn.get("classify", True),
+                **self._track_kwargs())
         self.dispatches += 1
         out = out._replace(packed=_PacketRow(
             _ChunkPacket(out.packed[None], self), 0))
@@ -277,25 +322,29 @@ class Tracker:
             st_prev = None
             while len(self._pending) >= depth_n:
                 st_prev = self._finalize_one()
-            self._pending.append((frame, out))
+            self._pending.append((frame, out, dyn is not None))
             self.last_frame = frame
             return st_prev if st_prev is not None else TrackStats("OK")
-        st = self._post_track(frame, out)
+        st = self._post_track(frame, out, dyn is not None)
         self._bookkeep(frame)
         return st
 
-    def step_images_chunk(self, frames) -> List[TrackStats]:
+    def step_images_chunk(self, frames, dyn: Optional[dict] = None
+                          ) -> List[TrackStats]:
         """Temporal chunking: C consecutive frames in one fused call and
         one [C, 28] packet readback. ``frames``: list of (gray, depth,
-        frame_id, timestamp). Frames chain on the device; the map
-        snapshot is fixed for the chunk, so keyframe and LOST decisions
-        lag. Returns the stats of the frames finalized in this call: with
+        boxes, box_active, frame_id, timestamp). Frames chain on the
+        device; the map snapshot is fixed for the chunk, so keyframe and
+        LOST decisions lag. ``dyn`` {ref_fd, have_ref, box_status, seed}
+        switches to the dynamic-scene chunk (classification on every
+        ``classify_every_chunked``-th frame, a [C, 28 + 17 B] packet).
+        Returns the stats of the frames finalized in this call: with
         ``pipeline_depth`` > 0 the previous chunk's, finalized while this
         one runs; with ``chunk_eager_finalize`` the previous chunk's,
         before this one is dispatched; else this chunk's."""
         if self.state != "OK" or len(frames) == 1:
-            return [self.step_images(g, d, fid, ts)
-                    for g, d, fid, ts in frames]
+            return [self.step_images(g, d, fid, ts, bx, ba, dyn=dyn)
+                    for g, d, bx, ba, fid, ts in frames]
         cfg = self.cfg
         sts = []
         eager = cfg.tracking.chunk_eager_finalize
@@ -316,26 +365,36 @@ class Tracker:
         C = len(frames)
         g_arr, d_arr, depth_scale = self._stage_inputs(
             np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames]))
-        bx, ba = self._chunk_empty_boxes(C)
+        bx, ba = self._upload_boxes([f[2] for f in frames],
+                                    [f[3] for f in frames], C)
         if upload_first and not finalize_all():
             # the images went up first; the map and chain are read after
             # the finalize, as in plain eager mode
             return sts
         chain = self._chain_inputs()
         ref = self._ref_at_dispatch()
-        outs, packed_dev = fused_track_chunk(
-            self.map, self.cam, self.bounds, g_arr, d_arr, bx, ba, *chain,
-            self._ref_kf_const(), depth_scale=depth_scale,
-            **self._track_kwargs())
+        if dyn is None:
+            outs, packed_dev = fused_track_chunk(
+                self.map, self.cam, self.bounds, g_arr, d_arr, bx, ba,
+                *chain, self._ref_kf_const(), depth_scale=depth_scale,
+                **self._track_kwargs())
+        else:
+            outs, packed_dev = fused_track_chunk_dyn(
+                self.map, self.cam, self.bounds, g_arr, d_arr, bx, ba,
+                dyn["box_status"], dyn["ref_fd"], dyn["have_ref"], *chain,
+                self._ref_kf_const(), seed=dyn["seed"],
+                n_hyp=cfg.dynamic.ransac_hypotheses,
+                classify_every=cfg.dynamic.classify_every_chunked,
+                depth_scale=depth_scale, **self._track_kwargs())
         self.dispatches += 1
         if not finalize_all():       # overlapped: the previous chunk
             return sts
         shared = _ChunkPacket(packed_dev, self)
-        for j, (_, _, fid, ts) in enumerate(frames):
+        for j, (_, _, _, _, fid, ts) in enumerate(frames):
             out = outs[j]._replace(packed=_PacketRow(shared, j))
             fr = self._new_frame(out, fid, ts, ref)
             fr.R, fr.t, fr.obs_lm = out.R, out.t, out.obs_lm
-            self._pending.append((fr, out))
+            self._pending.append((fr, out, dyn is not None))
         self._prev2_pose = (outs[-2].R, outs[-2].t)
         self.last_frame = self._pending[-1][0]
         if cfg.tracking.pipeline_depth == 0:
@@ -354,9 +413,9 @@ class Tracker:
 
     def _finalize_one(self) -> TrackStats:
         """Read back and bookkeep the oldest in-flight frame."""
-        frame, out = self._pending.popleft()
+        frame, out, was_dyn = self._pending.popleft()
         saved_last = self.last_frame
-        st = self._post_track(frame, out)
+        st = self._post_track(frame, out, was_dyn)
         # the frame dispatched last stays the one the next dispatch
         # chains on
         self._record_pose(frame)
@@ -534,9 +593,19 @@ class Tracker:
         frame.obs_lm = obs
         return n_good, frame
 
-    def _post_track(self, frame: Frame, out) -> TrackStats:
+    def _post_track(self, frame: Frame, out, dyn: bool = False
+                    ) -> TrackStats:
+        """Bookkeep a dispatched frame from its packet. With ``dyn`` the
+        packet carries the dynamic step's tail, [28:28+B] verdicts and
+        [28+B:28+17B] the per-box 3D state, which go into the stats
+        (``_split_dyn_packet`` :507)."""
         cfg = self.cfg
         packed = out.packed.numpy()      # the frame's or chunk's readback
+        tail = {}
+        if dyn:
+            B = cfg.dynamic.max_boxes
+            tail = dict(verdicts=packed[28:28 + B].astype(np.int32),
+                        box3d=packed[28 + B:28 + 17 * B].reshape(B, 16))
         n_mm, n_map = int(packed[0]), int(packed[1])
         close_bound, close_unbound = int(packed[2]), int(packed[3])
         np_R = packed[4:13].reshape(3, 3)
@@ -556,14 +625,14 @@ class Tracker:
                 frame.obs_lm = out.obs_lm
                 return TrackStats("LOST", n_inliers_mm=n_mm,
                                   n_inliers_map=n_map,
-                                  frame_id=frame.frame_id)
+                                  frame_id=frame.frame_id, **tail)
             n_good, frame = rec
             self.state = "OK"
             self.frames_since_kf += 1
             self._prev2_pose = None        # velocity invalid after a jump
             return TrackStats("OK", n_inliers_mm=n_mm, n_inliers_map=n_good,
                               frame_id=frame.frame_id, np_R=frame.np_R,
-                              np_t=frame.np_t)
+                              np_t=frame.np_t, **tail)
         frame.R, frame.t = out.R, out.t
         frame.np_R, frame.np_t = np_R, np_t
         frame.obs_lm = out.obs_lm
@@ -571,7 +640,8 @@ class Tracker:
         self.frames_since_kf += 1
         self._lost_streak = 0
         st = TrackStats("OK", n_inliers_mm=n_mm, n_inliers_map=n_map,
-                        frame_id=frame.frame_id, np_R=np_R, np_t=np_t)
+                        frame_id=frame.frame_id, np_R=np_R, np_t=np_t,
+                        **tail)
         if self._need_keyframe_counts(n_map, close_bound, close_unbound):
             before = self.kf_seq
             self._create_keyframe(frame, n_map)

@@ -1,6 +1,8 @@
 """The bench world of the port: the synthetic 640x480 RGB-D sequence and
 the config ``bench.py`` runs by default (1000 ORB features and the
-capacities of ``bench.py:250-261``), in camera-native dtypes.
+capacities of ``bench.py:250-261``), in camera-native dtypes; with
+``dynamic`` the moving-object world and precomputed boxes of
+``bench.py --dynamic`` (:228-229, :257).
 """
 from __future__ import annotations
 
@@ -10,9 +12,21 @@ from .. import config as C
 from .synthetic import SynthConfig, generate
 
 
-def bench_world(n_frames: int = 60, seed: int = 0):
+# bench.py:228-229: the moving object of ``--dynamic``
+DYNAMIC_OBJECT = dict(dynamic_object=True, obj_size=1.6, obj_depth=3.0,
+                      obj_speed=0.06)
+
+
+def detections(seq, i: int):
+    """Frame i's boxes [D, 4] as ``bench.py`` feeds them (:287-288), or
+    None when the object is out of view."""
+    return seq.boxes[i][seq.box_valid[i]] if seq.box_valid[i, 0] else None
+
+
+def bench_world(n_frames: int = 60, seed: int = 0, dynamic: bool = False):
     """(seq, gray uint8 [T,H,W], depth uint16 millimetres [T,H,W], cfg)."""
-    scfg = SynthConfig(n_frames=n_frames, seed=seed)
+    scfg = SynthConfig(n_frames=n_frames, seed=seed,
+                       **(DYNAMIC_OBJECT if dynamic else {}))
     seq = generate(scfg)
     gray8 = np.clip(seq.gray, 0, 255).astype(np.uint8)
     depth16 = np.clip(seq.depth * 1000.0, 0, 65535).astype(np.uint16)
@@ -23,7 +37,7 @@ def bench_world(n_frames: int = 60, seed: int = 0):
                               th_depth=120.0, fps=scfg.fps,
                               depth_map_factor=1000.0),
         orb=C.ORBConfig(n_features=1000),
-        detector=C.DetectorConfig(mode="off"),
+        detector=C.DetectorConfig(mode="precomputed" if dynamic else "off"),
         capacity=C.CapacityConfig(max_keyframes=128, max_landmarks=32768,
                                   max_keypoints=2048, local_ba_keyframes=8,
                                   local_ba_landmarks=2048),

@@ -191,6 +191,25 @@ def recording_k1(calls: list):
             mod.gated_match = gm.gated_match
 
 
+@contextlib.contextmanager
+def recording_k2(calls: list):
+    """Within the block, every K2 call of the dynamic step's box
+    classification (``frontend/dynamics_ops.py``) appends a copy of its
+    input pair to ``calls``; the calls themselves run as they would."""
+    from .frontend import dynamics_ops
+    from .ops import hamming as hm
+
+    def record(a, b):
+        calls.append((a.clone(), b.clone()))
+        return hm.hamming_matrix(a, b)
+
+    dynamics_ops.hamming_matrix = record
+    try:
+        yield calls
+    finally:
+        dynamics_ops.hamming_matrix = hm.hamming_matrix
+
+
 def path_k1_calls(n_frames: int = PATH_FRAMES, seed: int = 0):
     """The inputs of every K1 call of ``n_frames`` frames of
     ``System.track_rgbd`` on the bench world."""

@@ -133,11 +133,13 @@ def rotation_consistency(angle_a, angle_b, idx_b, ok, histo_length: int = 30,
     counts.index_add_(0, bins, ok.to(torch.int32))
     topv, topi = torch.sort(counts, descending=True, stable=True)
     topv, topi = topv[:keep_top], topi[:keep_top]
+    # the first bin needs a count, the others more than 10% of the first
     thr = (topv[0].to(torch.float32) * 0.1).to(torch.int32)
+    thr = torch.where(torch.arange(keep_top, device=thr.device) > 0, thr, 0)
+    # a scatter, not a Python loop of item assignments: indexing with a
+    # device scalar would wait for the device
     keep_bin = torch.zeros(histo_length, dtype=torch.bool,
-                           device=angle_a.device)
-    for k in range(keep_top):
-        keep_bin[topi[k]] = topv[k] > (thr if k else 0)
+                           device=angle_a.device).scatter(0, topi, topv > thr)
     return ok & keep_bin[bins]
 
 

@@ -1,10 +1,12 @@
 """Pure-matmul nullspace solve for batches of small systems.
 
 Port of ``slam_dynamic_tpu/ops/nullspace.py`` (``inv_newton_schulz``,
-``null_vector``), the batched two-view DLT solve of triangulation: the
-least right-singular vector of A from its Gram matrix by Newton-Schulz
-inversion, repeated squaring (inverse power iteration) and iterative
-refinement against A itself. Fixed trip counts, float32 throughout.
+``null_vector``, ``inv3`` :119, ``rank2_project`` :138), the batched DLT
+solves of triangulation and of the H/F RANSAC: the least right-singular
+vector of A from its Gram matrix by Newton-Schulz inversion, repeated
+squaring (inverse power iteration) and iterative refinement against A
+itself; the closed-form 3x3 inverse and the SVD-free rank-2 projection.
+Fixed trip counts, float32 throughout.
 """
 from __future__ import annotations
 
@@ -56,3 +58,33 @@ def null_vector(A: torch.Tensor, shift_rel: float = 1e-5,
         v = w / torch.clamp(torch.linalg.norm(w, dim=-1, keepdim=True),
                             min=1e-30)
     return v
+
+
+def inv3(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form adjugate inverse of M [..., 3, 3] (no LU)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / torch.where(det.abs() < 1e-30,
+                                torch.full_like(det, 1e-30), det)
+    adj = torch.stack([
+        torch.stack([A, -(b * i - c * h), (b * f - c * e)], dim=-1),
+        torch.stack([B, (a * i - c * g), -(a * f - c * d)], dim=-1),
+        torch.stack([C, -(a * h - b * g), (a * e - b * d)], dim=-1),
+    ], dim=-2)
+    return adj * inv_det[..., None, None]
+
+
+def rank2_project(F: torch.Tensor) -> torch.Tensor:
+    """Nearest rank-2 matrix to F [..., 3, 3] without an SVD:
+    F - (u3^T F v3) u3 v3^T, with u3 / v3 the least singular vectors
+    (refined null vectors of F^T and F)."""
+    v3 = null_vector(F, ns_iters=16, squarings=3, refine=2)
+    u3 = null_vector(F.transpose(-1, -2), ns_iters=16, squarings=3,
+                     refine=2)
+    s3 = (u3[..., None, :] @ F @ v3[..., :, None])[..., 0, 0]
+    return F - s3[..., None, None] * u3[..., :, None] * v3[..., None, :]

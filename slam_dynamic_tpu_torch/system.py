@@ -1,24 +1,34 @@
 """System facade: the public entry point of the port.
 
 Port of ``slam_dynamic_tpu/system.py:29`` (``System.__init__``),
-``_ensure_voc`` :75, ``_on_keyframe`` :99, ``track_rgbd`` :206 through its
-fused-path branch (:219-239), ``track_chunk`` :271 for a static scene, the
-``trajectory`` property and the trajectory writers. The port's System
-tracks and maps RGB-D frames, per frame or in temporal chunks, and runs
-loop detection on every keyframe. Not ported yet: the Sim3 verification
-and correction of a detected loop (a candidate raises), relocalization
-(a LOST frame waits for the reset policy), the dynamic-object module,
-detectors and dense mapping.
+``_ensure_voc`` :75, ``_on_keyframe`` :99, the box state
+(``_maybe_detect`` :164 for precomputed boxes, ``_advance_boxes`` :188,
+``_active_boxes`` :197), ``track_rgbd`` :206 through its fused-path
+branch (:219-239), ``track_chunk`` :271, ``_dyn_args`` :335,
+``_dyn_after`` :377, ``object_states`` :443, the ``trajectory`` property
+and the trajectory writers. The port's System tracks and maps RGB-D
+frames, per frame or in temporal chunks, runs loop detection on every
+keyframe, and with the detector's boxes (``DetectorConfig.mode =
+"precomputed"``, the library default) runs the dynamic-object module:
+box tracking, the fused H/F reclassification of the boxes and the
+per-object 3D state. Not ported yet: the Sim3 verification and
+correction of a detected loop (a candidate raises), relocalization (a
+LOST frame waits for the reset policy), the ``mask=`` path, the online
+detector, other sensors and dense mapping.
 """
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
+import torch
 
 from . import resolve_device
 from .backend.loop_closing import LoopCloser, LoopResult
 from .config import SystemConfig
+from .frontend.boxtrack import BoxTrackerState, track_boxes
+from .frontend.dynamics import DynamicsModule
 from .frontend.tracking import Tracker, TrackStats
 from .io import trajectory as traj_io
 from .models import vocabulary as voc_mod
@@ -32,18 +42,21 @@ def intrinsics_from_config(cfg: SystemConfig, device=None) -> Intrinsics:
 
 
 class System:
-    """``System(cfg).track_rgbd(gray_u8, depth_u16, t)`` or
-    ``.track_chunk(grays, depths, ts)`` on the card by default;
-    ``device="cpu"`` runs the plain PyTorch path on the CPU."""
+    """``System(cfg).track_rgbd(gray_u8, depth_u16, t, detections=)`` or
+    ``.track_chunk(grays, depths, ts, detections=)`` on the card by
+    default; ``device="cpu"`` runs the plain PyTorch path on the CPU."""
 
     def __init__(self, cfg: SystemConfig, device=None):
         if cfg.sensor != "rgbd":
             raise NotImplementedError(
-                f"sensor {cfg.sensor!r}: only RGB-D is ported yet")
-        if cfg.detector.mode != "off":
+                f"sensor {cfg.sensor!r}: only RGB-D is ported yet; stereo "
+                "and mono, with or without dynamic objects, are ROADMAP "
+                "item 17")
+        if cfg.detector.mode == "online":
             raise NotImplementedError(
-                "the dynamic-object module is not ported yet; use "
-                "DetectorConfig(mode='off')")
+                "the online detector (CenterNet) is not ported yet (ROADMAP "
+                "item 18); pass precomputed boxes with "
+                "DetectorConfig(mode='precomputed')")
         if cfg.loop.run_global_ba:
             raise NotImplementedError(
                 "the post-loop global BA is not ported yet; use "
@@ -58,6 +71,10 @@ class System:
         self.cam = intrinsics_from_config(cfg, self.device)
         self.tracker = Tracker(cfg, self.cam)
         self.frame_id = 0
+        self.boxes = BoxTrackerState.empty()
+        self.dynamics = DynamicsModule(cfg, self.device) \
+            if cfg.detector.mode != "off" else None
+        self._dyn_consts = None
         # place recognition: the vocabulary is loaded (or trained) at the
         # first keyframe unless a path is configured
         self.voc = None
@@ -107,26 +124,137 @@ class System:
         self.tracker.map = m
         self.last_loop: LoopResult = result
 
+    # ------------------------------------------------------------------
+    def _advance_boxes(self, detections: Optional[np.ndarray]):
+        """Advance the box tracker by one frame's detections [D, 4]
+        (precomputed boxes; None is no detection)."""
+        if detections is None:
+            detections = np.zeros((0, 4), np.float32)
+        dc = self.cfg.dynamic
+        self.boxes = track_boxes(self.boxes, detections,
+                                 iou_threshold=dc.iou_match_threshold,
+                                 max_missed=dc.velocity_ghost_frames,
+                                 max_boxes=dc.max_boxes)
+
+    def _active_boxes(self):
+        """Boxes quarantining keypoints: tentative or confirmed dynamic
+        (a box reclassified static, status 1, stops gating)."""
+        if len(self.boxes.boxes) == 0:
+            return None, None
+        return self.boxes.boxes, self.boxes.status != 1
+
+    def _dyn_args(self, timestamp: float, stride: bool = False):
+        """Inputs of the fused dynamic step, or None when the module is off
+        or tracking is not OK. ``stride`` (the per-frame path): also None
+        with no tracked box (the static step runs), and ``classify`` False
+        off the ``classify_every`` stride. The box status is uploaded only
+        when it changes and the seed is a device constant: the per-frame
+        RANSAC variation is derived on the device from the pose."""
+        if self.dynamics is None or self.tracker.state != "OK":
+            return None
+        classify = True
+        if stride:
+            if len(self.boxes.boxes) == 0:
+                return None
+            ce = self.cfg.dynamic.classify_every
+            classify = not (ce > 1 and self.frame_id % ce != 0)
+        B = self.cfg.dynamic.max_boxes
+        status = np.zeros(B, np.int32)
+        n = min(len(self.boxes.status), B)
+        status[:n] = self.boxes.status[:n]
+        ref_fd, have_ref = self.dynamics.pick_ref_fd(
+            timestamp, self.cfg.capacity.max_keypoints)
+        key = status.tobytes()
+        if self._dyn_consts is None or self._dyn_consts[0] != key:
+            seed = self._dyn_consts[2] if self._dyn_consts else torch.tensor(
+                self.cfg.seed, dtype=torch.int32, device=self.device)
+            self._dyn_consts = (key, torch.from_numpy(status).to(
+                self.device), seed)
+        return dict(ref_fd=ref_fd, have_ref=have_ref,
+                    box_status=self._dyn_consts[1], seed=self._dyn_consts[2],
+                    classify=classify)
+
+    def _dyn_after(self, st: TrackStats, timestamp: float):
+        """Streaks and 3D state from the finalized frame's verdicts; the
+        frame dispatched last enters the reference queue."""
+        if self.dynamics is None:
+            return
+        if st.verdicts is not None and len(self.boxes.boxes):
+            self.dynamics.update_streaks(self.boxes, st.verdicts)
+            self.dynamics.update_box3d(self.boxes, st.box3d, timestamp)
+        lf = self.tracker.last_frame
+        if lf is not None and self.tracker.state == "OK":
+            self.dynamics.push_fd(timestamp, lf.data)
+
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray,
-                   timestamp: float) -> TrackStats:
+                   timestamp: float,
+                   detections: Optional[np.ndarray] = None,
+                   mask: Optional[np.ndarray] = None) -> TrackStats:
         """RGB-D entry (ref System::TrackRGBD): uint8 gray and uint16 (or
         float metres) depth in, one fused device step per tracked frame.
-        (The reference's ``detections``/``mask`` arguments need the
-        dynamic-object module, not ported yet.)"""
-        st = self.tracker.step_images(gray, depth, self.frame_id, timestamp)
+        ``detections`` [D, 4] are this frame's boxes (x0, y0, x1, y1);
+        with the dynamic-object module on they are tracked, classified and
+        their keypoints quarantined or reinstated in the same step."""
+        if mask is not None:
+            raise NotImplementedError(
+                "track_rgbd(mask=...): the pixel-mask path tracks a "
+                "host-built frame, not ported yet (ROADMAP item 14)")
+        self._advance_boxes(detections)
+        boxes, bvalid = self._active_boxes()
+        dyn = self._dyn_args(timestamp, stride=True)
+        if dyn is not None:
+            # classification sees every box (a static box can turn
+            # dynamic); the status gates quarantine inside the step
+            boxes = self.boxes.boxes
+            bvalid = np.ones(len(boxes), bool)
+        st = self.tracker.step_images(gray, depth, self.frame_id, timestamp,
+                                      boxes, bvalid, dyn=dyn)
+        self._dyn_after(st, timestamp)
         self.frame_id += 1
         return st
 
-    def track_chunk(self, grays, depths, timestamps) -> list:
+    def track_chunk(self, grays, depths, timestamps,
+                    detections: Optional[list] = None) -> list:
         """Temporal chunking: C consecutive RGB-D frames in one fused call
-        and one packed readback (``Tracker.step_images_chunk``). Returns
-        the stats of the frames finalized in this call; decisions lag up
-        to a chunk."""
+        and one packed readback (``Tracker.step_images_chunk``).
+        ``detections``: one box array (or None) per frame; with the
+        dynamic-object module on, the chunk classifies its boxes against
+        the reference frame picked at its start, and the streaks are
+        updated from the verdicts of the chunk finalized in this call.
+        Returns the stats of the frames finalized in this call; decisions
+        lag up to a chunk."""
         frames = []
-        for g, d, ts in zip(grays, depths, timestamps):
-            frames.append((g, d, self.frame_id, ts))
+        first_id = self.frame_id
+        for j, (g, d, ts) in enumerate(zip(grays, depths, timestamps)):
+            self._advance_boxes(detections[j] if detections is not None
+                                else None)
+            boxes, bvalid = self._active_boxes()
+            if self.dynamics is not None and len(self.boxes.boxes):
+                boxes = self.boxes.boxes.copy()
+                bvalid = np.ones(len(boxes), bool)
+            frames.append((g, d, boxes, bvalid, self.frame_id, ts))
             self.frame_id += 1
-        return self.tracker.step_images_chunk(frames)
+        sts = self.tracker.step_images_chunk(
+            frames, dyn=self._dyn_args(timestamps[0]))
+        if self.dynamics is not None:
+            # the finalized chunk's verdicts update the streaks now; the
+            # frames just dispatched enter the reference queue for later
+            # chunks
+            for st in sts:
+                if st.verdicts is not None and len(self.boxes.boxes):
+                    self.dynamics.update_streaks(self.boxes, st.verdicts)
+                    self.dynamics.update_box3d(self.boxes, st.box3d,
+                                               timestamps[0])
+            for fr, _, _ in self.tracker._pending:
+                if fr.frame_id >= first_id:
+                    self.dynamics.push_fd(fr.timestamp, fr.data)
+        return sts
+
+    @property
+    def object_states(self) -> dict:
+        """Per-object smoothed 3D state (box track id -> {d, t, R, ext,
+        ts}), refreshed on every tracked frame."""
+        return {} if self.dynamics is None else self.dynamics.obj_state
 
     @property
     def trajectory(self):

@@ -1,11 +1,14 @@
 """Where the time of the tracker goes on the card, per frame and chunked.
 
-    python -m slam_dynamic_tpu_torch.trace_track
+    python -m slam_dynamic_tpu_torch.trace_track [--dynamic]
 
 Runs ``FRAMES`` frames of the bench world (io/bench_world.py) on the GPU
 twice: ``System.track_rgbd`` frame by frame, then ``System.track_chunk``
 in chunks of ``CHUNK`` with one chunk in flight, as
-``slam_dynamic_tpu_torch.bench`` runs it. Each step is timed on the host
+``slam_dynamic_tpu_torch.bench`` runs it. ``--dynamic`` instead runs the
+chunked path once on the dynamic scene (``bench --dynamic``: the moving
+object in view throughout, its boxes, the H/F classification on every
+2nd chunk frame), with the ``classify`` and ``box3d`` spans. Each step is timed on the host
 clock with a synchronize, then ``torch.profiler`` covers the last
 ``WINDOW`` frames (and, chunked, the flush of the chunk in flight).
 Prints the steady step times, the device's busy share over the window
@@ -15,6 +18,7 @@ operators that take the most device and host time. Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import time
 
@@ -22,43 +26,49 @@ import numpy as np
 import torch
 
 from .bench import PIPELINE_DEPTH
-from .io.bench_world import bench_world
+from .io.bench_world import bench_world, detections
 from .system import System
 
 FRAMES = 40
 WINDOW = 12
 CHUNK = 6
-STAGES = ("frame_build", "mm_track", "local_map", "local_track",
-          "mapping_stage", "triangulate", "fuse", "local_ba")
+STAGES = ("frame_build", "classify", "mm_track", "local_map",
+          "local_track", "box3d", "mapping_stage", "triangulate", "fuse",
+          "local_ba")
 
 
-def _steps(system, world, chunk: int):
+def _steps(system, world, chunk: int, dynamic: bool):
     """(first frame, step) pairs covering the frames: one frame each, or
-    frame 0 to initialize and then chunks."""
+    frame 0 to initialize and then chunks; with their boxes when
+    ``dynamic``."""
     seq, gray8, depth16, _ = world
     ts = [float(t) for t in seq.timestamps]
 
+    def det(i):
+        return detections(seq, i) if dynamic else None
+
     def frame(i):
-        return lambda: [system.track_rgbd(gray8[i], depth16[i], ts[i])]
+        return lambda: [system.track_rgbd(gray8[i], depth16[i], ts[i],
+                                          det(i))]
 
     def block(i):
-        return lambda: system.track_chunk(gray8[i:i + chunk],
-                                          depth16[i:i + chunk],
-                                          ts[i:i + chunk])
+        return lambda: system.track_chunk(
+            gray8[i:i + chunk], depth16[i:i + chunk], ts[i:i + chunk],
+            [det(i + j) for j in range(chunk)] if dynamic else None)
     if chunk == 1:
         return [(i, frame(i)) for i in range(FRAMES)]
     return [(0, frame(0))] + [(i, block(i))
                               for i in range(1, FRAMES - chunk + 1, chunk)]
 
 
-def trace(chunk: int):
-    world = bench_world(FRAMES)
+def trace(chunk: int, dynamic: bool = False):
+    world = bench_world(FRAMES, dynamic=dynamic)
     cfg = world[3]
     if chunk > 1:
         cfg = cfg.replace(tracking=dataclasses.replace(
             cfg.tracking, pipeline_depth=PIPELINE_DEPTH))
     system = System(cfg)
-    steps = _steps(system, world, chunk)
+    steps = _steps(system, world, chunk, dynamic)
     n_win = WINDOW // chunk
     times = []
     for _, step in steps[:-n_win]:
@@ -78,7 +88,8 @@ def trace(chunk: int):
         wall_ms = (time.perf_counter() - t_win) * 1e3
     n_frames = n_win * chunk
     what = "frame" if chunk == 1 else f"chunk of {chunk}"
-    print(f"== {'track_rgbd' if chunk == 1 else 'track_chunk'} on "
+    print(f"== {'track_rgbd' if chunk == 1 else 'track_chunk'}"
+          f"{', dynamic scene' if dynamic else ''} on "
           f"{torch.cuda.get_device_name(0)}: steps before the window, host "
           f"ms per {what}: p50 {np.median(times[1:]):.2f}, first "
           f"{times[0]:.1f}")
@@ -109,9 +120,16 @@ def trace(chunk: int):
     print(ev.table(sort_by="self_cpu_time_total", row_limit=20))
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dynamic", action="store_true",
+                    help="the chunked path on the dynamic scene only")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("trace_track: needs a CUDA device")
+    if args.dynamic:
+        trace(CHUNK, dynamic=True)
+        return
     trace(1)
     trace(CHUNK)
 

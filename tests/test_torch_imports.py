@@ -35,7 +35,13 @@ def test_no_jax_import(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, slam_dynamic_tpu_torch.system, "
-            "slam_dynamic_tpu_torch.convert; "
+            "slam_dynamic_tpu_torch.convert, "
+            "slam_dynamic_tpu_torch.bench, "
+            "slam_dynamic_tpu_torch.frontend.dynamics, "
+            "slam_dynamic_tpu_torch.frontend.dynamics_ops, "
+            "slam_dynamic_tpu_torch.frontend.boxtrack, "
+            "slam_dynamic_tpu_torch.ops.ransac, "
+            "slam_dynamic_tpu_torch.ops.pointcloud; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

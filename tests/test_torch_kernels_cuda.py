@@ -267,3 +267,75 @@ def test_k1_kernel_skips_gated_out_work_on_card(cuda_device, case):
     targs[6] = torch.full_like(targs[6], 1e4)
     targs[7] = torch.zeros_like(targs[7])
     _check_k1(targs)
+
+
+def _frame_pair_data(rng, n=2048, n_valid=1000):
+    """Reference and current descriptors as a dynamic step sees them:
+    ``n_valid`` keypoints then invalid slots (all-zero descriptors, as
+    padding and the placeholder reference frame hold), with a share of
+    the current frame's keypoints re-observed with a few bits flipped."""
+    ref = np.zeros((n, 8), np.int32)
+    cur = np.zeros((n, 8), np.int32)
+    ref[:n_valid] = _desc(rng, n_valid)
+    cur[:n_valid] = _desc(rng, n_valid)
+    seen = rng.permutation(n_valid)[:600]
+    flips = (rng.random((600, 8, 32)) < 0.03)
+    bits = (flips * (1 << np.arange(32, dtype=np.int64))).sum(-1)
+    cur[seen] = ref[seen] ^ bits.astype(np.uint32).view(np.int32)
+    valid_r = np.zeros(n, bool)
+    valid_c = np.zeros(n, bool)
+    valid_r[:n_valid] = valid_c[:n_valid] = True
+    return ref, cur, valid_r, valid_c
+
+
+@pytest.mark.cuda
+def test_k2_on_a_dynamic_frame_pair_on_card(cuda_device):
+    """K2 at [2048, 2048] on a reference/current pair with invalid slots,
+    and the placeholder reference of all-zero descriptors."""
+    ref, cur, _, _ = _frame_pair_data(np.random.default_rng(7))
+    a, b = _torch([ref, cur], cuda_device)
+    before = hm.launches
+    d = hm.hamming_matrix(a, b)
+    assert hm.launches == before + 1
+    assert torch.equal(d, hm.hamming_matrix_plain(a, b))
+    z = torch.zeros_like(a)
+    assert torch.equal(hm.hamming_matrix(z, b), hm.hamming_matrix_plain(z, b))
+
+
+@pytest.mark.cuda
+def test_match_nn_on_transposed_k2_view_on_card(cuda_device):
+    """The in-box matcher reads K2's output transposed (current x
+    reference): match_nn and the rotation filter on that view give what
+    the plain path gives on the CPU."""
+    from slam_dynamic_tpu_torch.frontend.dynamics_ops import _match_from
+    rng = np.random.default_rng(8)
+    ref, cur, vr, vc = _frame_pair_data(rng)
+    in_box = rng.random(2048) < 0.3
+    ang_r = rng.uniform(0, 6.28, 2048).astype(np.float32)
+    ang_c = ang_r + rng.normal(0, 0.05, 2048).astype(np.float32)
+    cpu = torch.device("cpu")
+    out = {}
+    for dev in (cuda_device, cpu):
+        a, b, mr, mc, br, ar, ac = _torch(
+            [ref, cur, vr, vc & in_box, vr, ang_r, ang_c], dev)
+        d = hm.hamming_matrix(a, b)            # [ref, cur]
+        out[dev.type] = _match_from(d.t(), mc, mr, ac, ar, max_dist=64,
+                                    ratio=0.9)
+    idx_k, ok_k = (x.cpu() for x in out["cuda"])
+    idx_p, ok_p = out["cpu"]
+    assert ok_p.sum() > 100
+    assert torch.equal(ok_k, ok_p)
+    assert torch.equal(idx_k[ok_p], idx_p[ok_p])
+
+
+@pytest.mark.cuda
+def test_ransac_draws_equal_on_card_and_cpu(cuda_device):
+    """The port's hashed RANSAC draws do not depend on the device."""
+    from slam_dynamic_tpu_torch.ops.ransac import sample_indices
+    mask = torch.from_numpy(np.random.default_rng(9).random(2048) < 0.4)
+    seed = torch.tensor(-123456, dtype=torch.int32)
+    for k, stream in ((4, 0), (8, 1)):
+        c = sample_indices(seed, stream, 256, k, mask)
+        g = sample_indices(seed.to(cuda_device), stream, 256, k,
+                           mask.to(cuda_device))
+        assert torch.equal(c, g.cpu())

@@ -12,7 +12,9 @@ import torch
 
 from slam_dynamic_tpu import config as JC
 from slam_dynamic_tpu_torch import config as TC
+from slam_dynamic_tpu_torch.convert import frame_data_from_numpy
 from slam_dynamic_tpu_torch.frontend.frame import FrameData as TFrameData
+from slam_dynamic_tpu_torch.io.bench_world import detections
 from slam_dynamic_tpu_torch.io.synthetic import SynthConfig, generate
 
 # The tests run in several worker processes at once; torch's own thread
@@ -64,7 +66,8 @@ def to_t(x, dtype=None):
 
 def frame_to_t(fd) -> TFrameData:
     """A JAX FrameData -> the port's FrameData."""
-    return TFrameData(*(to_t(getattr(fd, f)) for f in TFrameData._fields))
+    return frame_data_from_numpy(
+        {f: np.asarray(getattr(fd, f)) for f in TFrameData._fields}, "cpu")
 
 
 def map_arrays(m) -> dict:
@@ -166,3 +169,89 @@ def check_kfdb(js, ts):
             sj, st = set(wj[wj >= 0]), set(wt[wt >= 0])
             assert len(sj ^ st) <= 2 * int(differ.sum()), k
     assert n_equal >= 0.8 * int(bt.valid.sum())
+
+
+# --- dynamic-scene System runs (tests/test_torch_dynamic_chunk.py,
+# tests/test_torch_dynamic_frame.py) ---
+
+# the 320x240 worlds of tests/test_e2e_dynamic.py
+DYNAMIC_WORLDS = {
+    "moving": dict(dynamic_object=True, obj_size=1.6, obj_depth=3.0,
+                   obj_speed=0.09),
+    "static_box": dict(dynamic_object=True, obj_size=1.4, obj_depth=3.5,
+                       obj_speed=0.0, obj_x0=0.0, obj_bob=0.0),
+}
+
+
+def dynamic_world(kind, n_frames):
+    scfg = SynthConfig(**{**SMALL, "n_frames": n_frames},
+                       **DYNAMIC_WORLDS[kind])
+    seq = generate(scfg)
+    gray8 = np.clip(seq.gray, 0, 255).astype(np.uint8)
+    depth16 = np.clip(seq.depth * 1000.0, 0, 65535).astype(np.uint16)
+    return scfg, seq, gray8, depth16
+
+
+def dynamic_configs(scfg, detector="precomputed", **dynamic):
+    """The RGB-D config of both packages with the detector's mode and the
+    dynamic-object options set."""
+    out = []
+    for C, cfg in zip((JC, TC), configs(scfg)):
+        cfg = cfg.replace(detector=C.DetectorConfig(mode=detector))
+        out.append(cfg.replace(dynamic=dataclasses.replace(cfg.dynamic,
+                                                           **dynamic)))
+    return out
+
+
+def run_dynamic(system, world, n_frames, chunk, use_boxes=True):
+    """Either package's System on a dynamic world with its boxes (none
+    unless ``use_boxes``): per frame (chunk 1), or per frame until
+    tracking is OK and then in chunks of ``chunk``, then the frames in
+    flight. Returns the stats, the box statuses after every call with the
+    frames finalized in it (``history``: [(frame ids, statuses)]) and the
+    trajectory."""
+    _, seq, gray8, depth16 = world
+    ts = [float(t) for t in seq.timestamps]
+    stats, history, i = [], [], 0
+
+    def boxes(i):
+        return detections(seq, i) if use_boxes else None
+
+    def record(new):
+        stats.extend(new)
+        history.append(([s.frame_id for s in new],
+                        tuple(int(x) for x in system.boxes.status)))
+    while i < n_frames and (chunk == 1 or system.tracker.state != "OK"):
+        record([system.track_rgbd(gray8[i], depth16[i], ts[i],
+                                  detections=boxes(i))])
+        i += 1
+    while i + chunk <= n_frames and chunk > 1:
+        record(system.track_chunk(
+            gray8[i:i + chunk], depth16[i:i + chunk], ts[i:i + chunk],
+            detections=[boxes(i + j) for j in range(chunk)]))
+        i += chunk
+    tail = []
+    while system.tracker._pending:
+        tail.append(system.tracker._finalize_one())
+    record(tail)
+    est = np.stack([-R.T @ t for _, R, t in system.trajectory])
+    return dict(stats=stats, history=history, est=est, system=system)
+
+
+def status_by_frame(run):
+    """frame id -> the box statuses once that frame was finalized."""
+    return {f: st for fids, st in run["history"] for f in fids}
+
+
+def first_status_difference(rj, rt):
+    """The first finalized frame at which the two runs' box statuses
+    differ (past the last frame when they never do)."""
+    sj, st = status_by_frame(rj), status_by_frame(rt)
+    diff = [f for f in sorted(sj) if sj[f] != st.get(f)]
+    return diff[0] if diff else max(sj) + 1
+
+
+def first_status(run, value):
+    """Index of the first call after which some box has ``value``."""
+    return next(k for k, (_, st) in enumerate(run["history"])
+                if value in st)
