@@ -50,17 +50,38 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
   7. the per-frame dynamic path: 30 frames of that world through
      System.track_rgbd(detections=) classifying every 2nd frame, so both
      forms of the dynamic step run: LOST frames, the forms dispatched,
-     the launches and the box status.
+     the launches and the box status;
+  8. loop closure at full width: tests/test_e2e_loop_reloc.py's orbit
+     world (a closed circuit, ``ORBIT_FRAMES`` frames, a keyframe at
+     least every 5 frames) at 640x480 with the bench capacities, through
+     System.track_rgbd as that test runs it, once with loop closing on
+     and once off (chunked, the JAX package loses this orbit with a
+     chunk in flight, and without one a loop's effect on the ATE is
+     inside the runs' spread: PERF.md, section 6): at least one loop closed,
+     no LOST frame, the unaligned ATE under 0.15 m and under 0.75x the
+     run without closing; every K2 call of the first closing keyframe's
+     verification, correction and fuse held bit-equal with its plain
+     version and timed, and its host time split;
+  9. relocalization, its drift correction and the ``mask=`` path at
+     640x480: a kidnap per frame (20 frames, two flat frames with zero
+     depth that go LOST, frame 5 again, relocalized within 5 cm) with K1
+     held bit-equal on the relocalized frame's track; the same kidnap
+     through track_chunk (C = 6), where the chunk after the LOST one is
+     dropped and the next relocalizes; a drift injected into the last
+     keyframe and its landmarks, corrected by the relocalization hook to
+     under 0.35x; and 20 frames of the moving-object world through
+     track_rgbd(mask=, detections=) with no LOST frame.
 
 Kernel, plain and library times are device times (CUDA-graph replay
 between CUDA events, slam_dynamic_tpu_torch/kernel_bench.py), each beside
 the least time the card could take for the same work; K2's row takes
 its times from phase 6's inputs. It then prints the kernel table as one
 JSON line (``launches`` is phase 5's count, the main path's;
-``launches_per_phase`` adds phases 3, 6 and 7) and, last, the result
-line. Any failed check raises, and a hang ends in a traceback and a
-nonzero exit after 1100 s.
+``launches_per_phase`` adds phases 3, 6, 7, 8 and 9) and, last, the
+result line. Any failed check raises, and a hang ends in a traceback and
+a nonzero exit after 1100 s.
 """
+import contextlib
 import faulthandler
 import json
 import os
@@ -76,6 +97,9 @@ CHUNK = 6
 CHUNK_FRAMES = 120
 DYN_FRAMES = 30
 OBJECT_LEAVES = 50      # the bench world's object is in view before this
+ORBIT_FRAMES = 100      # tests/test_e2e_loop_reloc.py's circuit
+KIDNAP_FRAMES = 20
+MASK_FRAMES = 20
 
 
 def log(msg):
@@ -432,6 +456,334 @@ def phase_dynamic_frame(gm, hm):
     return launches
 
 
+@contextlib.contextmanager
+def host_spans(spans: dict, *targets):
+    """Within the block, each (owner, attribute) of ``targets`` is wrapped
+    to add its wall time, the device synchronized on both ends, to
+    ``spans[attribute]`` (ms)."""
+    import torch
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spans[name] = spans.get(name, 0.0) + \
+                    (time.perf_counter() - t0) * 1e3
+        return timed
+
+    for owner, name, fn in saved:
+        setattr(owner, name, wrap(name, fn))
+    try:
+        yield spans
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def _spans_line(spans: dict) -> str:
+    return ", ".join(f"{k} {v:.1f} ms" for k, v in spans.items())
+
+
+def _zero_launches(gm, hm):
+    gm.launches = 0
+    hm.launches = 0
+
+
+def _launches(gm, hm):
+    return {"gated_match": gm.launches, "hamming_matrix": hm.launches}
+
+
+def run_orbit(kb, loop_on: bool, k2_calls: list):
+    """The orbit world through track_rgbd, frame by frame. With loop
+    closing on, the K2 calls of the first keyframe that closes a loop are
+    kept in ``k2_calls``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from slam_dynamic_tpu_torch.io.bench_world import bench_world
+    from slam_dynamic_tpu_torch.io.evo import ate_rmse
+    from slam_dynamic_tpu_torch.system import System
+
+    seq, gray8, depth16, cfg = bench_world(ORBIT_FRAMES, SEED,
+                                           trajectory="orbit")
+    cfg = cfg.replace(
+        tracking=dataclasses.replace(cfg.tracking, max_frames_between_kf=5),
+        loop=dataclasses.replace(cfg.loop, enabled=loop_on))
+    from slam_dynamic_tpu_torch.backend.loop_closing import LoopCloser
+    system = System(cfg)
+    closed, spans = [], []
+    orig = system._on_keyframe
+    parts = [(LoopCloser, n) for n in ("_detect", "_compute_sim3", "_correct",
+                                       "_search_and_fuse")]
+
+    def on_keyframe(k):
+        calls, kf_spans = [], {}
+        with kb.recording_k2(calls, every=True), \
+                host_spans(kf_spans, *parts):
+            t0 = time.perf_counter()
+            orig(k)
+            torch.cuda.synchronize()
+            kf_spans["on_keyframe"] = (time.perf_counter() - t0) * 1e3
+        r = system.last_loop
+        if r is not None and r.closed:
+            closed.append((k, system.tracker.kf_seq, r.matched_kf,
+                           r.n_inliers, r.n_total))
+            spans.append(kf_spans)
+            if not k2_calls:
+                k2_calls.extend(calls)
+    system.tracker.on_keyframe = on_keyframe
+    t0 = time.perf_counter()
+    stats = [system.track_rgbd(gray8[i], depth16[i], float(seq.timestamps[i]))
+             for i in range(ORBIT_FRAMES)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    est = np.stack([-R.T @ t for _, R, t in system.trajectory])
+    if not np.isfinite(est).all():
+        raise AssertionError("orbit: non-finite trajectory")
+    est_w = (seq.R_wc[0] @ est.T).T + seq.t_wc[0]
+    return dict(closed=closed, frames=len(est), wall=wall, spans=spans,
+                lost=sum(s.state == "LOST" for s in stats),
+                keyframes=system.tracker.kf_seq,
+                ate=ate_rmse(est_w, seq.t_wc[:len(est)], align=False),
+                fail=system.loop._last_sim3_fail if system.loop else "")
+
+
+def phase_loop_closure(gm, hm, kb, k2_err):
+    """Phase 8: the loop closed on the card, and K2 on its inputs."""
+    import numpy as np
+    import torch
+    k2_calls = []
+    _zero_launches(gm, hm)
+    on = run_orbit(kb, True, k2_calls)
+    launches = _launches(gm, hm)
+    off = run_orbit(kb, False, [])
+    for name, r in (("on", on), ("off", off)):
+        log(f"phase 8 orbit 640x480 x {ORBIT_FRAMES} frames, track_rgbd, "
+            f"loop closing {name}: "
+            f"{r['frames'] / r['wall']:.2f} fps, keyframes {r['keyframes']}, "
+            f"loops closed (slot, seq, candidate, inliers, total) "
+            f"{r['closed']}, LOST frames {r['lost']}, unaligned ATE "
+            f"{r['ate'] * 1e3:.3f} mm" + (f", launches {launches}"
+                                          if name == "on" else ""))
+    for (k, *_), sp in zip(on["closed"], on["spans"]):
+        log(f"  keyframe {k}'s loop closing, host time: {_spans_line(sp)}")
+    if not on["closed"] or on["lost"] or off["closed"]:
+        raise AssertionError(f"orbit: closed {on['closed']}, LOST "
+                             f"{on['lost']}, last Sim3 gate {on['fail']}")
+    if not (on["ate"] < 0.15 and on["ate"] < 0.75 * off["ate"]):
+        raise AssertionError(f"orbit: ATE {on['ate']:.4f} m with closing, "
+                             f"{off['ate']:.4f} m without")
+    times = []
+    for a, b in k2_calls:
+        got, ref = hm.hamming_matrix(a, b), hm.hamming_matrix_plain(a, b)
+        torch.cuda.synchronize()
+        k2_err = max(k2_err, int((got - ref).abs().max()))
+        if not torch.equal(got, ref):
+            raise AssertionError("K2 on the loop closure's inputs: kernel "
+                                 "!= plain")
+        times.append(k2_times(hm, kb, a, b))
+    if not times:
+        raise AssertionError("no K2 call recorded on the closing keyframe")
+    ms_k, ms_p, ms_l, b_ms = (float(np.mean([t[i] for t in times]))
+                              for i in range(4))
+    shapes = sorted({(int(a.shape[0]), int(b.shape[0])) for a, b in k2_calls})
+    log(f"  K2 on the {len(k2_calls)} calls of the closing keyframe "
+        f"(shapes {shapes}): bit-equal with plain; mean device time per "
+        f"call kernel {ms_k:.6f} ms, plain {ms_p:.4f} ms, torch._int_mm "
+        f"{ms_l:.6f} ms, bound {b_ms:.5f} ms ({times[0][4]}, "
+        f"{b_ms / ms_k:.1%} of it reached)")
+    return launches, k2_err
+
+
+def _kidnap_frames(world, views):
+    """20 frames of the sweep world, two flat frames with zero depth
+    (timestamps 1.0, 1.03), and frame 5's view at each of ``views``."""
+    import numpy as np
+    seq, gray8, depth16, _ = world
+    flat = np.full_like(gray8[0], 120)
+    zdep = np.zeros_like(depth16[0])
+    frames = [(gray8[i], depth16[i], float(seq.timestamps[i]))
+              for i in range(KIDNAP_FRAMES)]
+    frames += [(flat, zdep, 1.0 + 0.03 * j) for j in range(2)]
+    return frames + [(gray8[5], depth16[5], t) for t in views]
+
+
+def _centre_error(system, seq, ts):
+    import numpy as np
+    poses = {t: (R, tt) for t, R, tt in system.trajectory}
+    R, t = poses[ts]
+    return float(np.linalg.norm(-R.T @ t - seq.t_wc[5]))
+
+
+def _inject_drift(system, k_last, dt):
+    """The drifted revisit of tests/test_reloc_correction.py:inject_drift
+    on the card: every landmark k_last observes is duplicated with the
+    world offset dt, and k_last's camera moves consistently."""
+    import numpy as np
+    import torch
+    m = system.tracker.map
+    obs_k = m.kf_obs_lm[k_last].cpu().numpy()
+    src = np.unique(obs_k[obs_k >= 0])
+    free = np.nonzero(~m.lm_valid.cpu().numpy())[0][:len(src)]
+    remap = dict(zip(src.tolist(), free.tolist()))
+    dev = m.lm_pos.device
+    s_t, f_t = (torch.from_numpy(x).to(dev) for x in (src, free))
+    lm_pos = m.lm_pos.clone()
+    lm_pos[f_t] = m.lm_pos[s_t] + torch.tensor(dt, dtype=torch.float32,
+                                               device=dev)
+    lm_desc, lm_valid, lm_first = (m.lm_desc.clone(), m.lm_valid.clone(),
+                                   m.lm_first_kf.clone())
+    lm_desc[f_t] = m.lm_desc[s_t]
+    lm_valid[f_t] = True
+    lm_first[f_t] = k_last
+    obs = m.kf_obs_lm.clone()
+    obs[k_last] = torch.tensor([remap.get(int(o), int(o)) if o >= 0 else -1
+                                for o in obs_k], dtype=torch.int32,
+                               device=dev)
+    kf_t = m.kf_t.clone()
+    kf_t[k_last] = m.kf_t[k_last] - m.kf_R[k_last] @ torch.tensor(
+        dt, dtype=torch.float32, device=dev)
+    system.tracker.map = m._replace(kf_t=kf_t, kf_obs_lm=obs, lm_pos=lm_pos,
+                                    lm_desc=lm_desc, lm_valid=lm_valid,
+                                    lm_first_kf=lm_first)
+    system.tracker._kf_pose_cache.clear()
+
+
+def phase_relocalization(gm, hm, kb, k1_err):
+    """Phase 9: the kidnap per frame and chunked, the drift correction and
+    the mask= path, with K1 held on the relocalized frame's track."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from slam_dynamic_tpu_torch.backend import relocalization
+    from slam_dynamic_tpu_torch.backend.loop_closing import LoopCloser
+    from slam_dynamic_tpu_torch.frontend.tracking import Tracker
+    from slam_dynamic_tpu_torch.io.bench_world import (bench_world,
+                                                       detections)
+    from slam_dynamic_tpu_torch.system import System
+
+    world = bench_world(KIDNAP_FRAMES + 4, SEED)
+    seq, cfg = world[0], world[3]
+    kid_cfg = cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, max_frames_between_kf=5))
+    _zero_launches(gm, hm)
+    # the kidnap, per frame; K1's inputs on the relocalized frame
+    system = System(kid_cfg)
+    frames = _kidnap_frames(world, [2.0])
+    states = [system.track_rgbd(*f).state for f in frames[:-1]]
+    calls, spans = [], {}
+    with kb.recording_k1(calls), host_spans(
+            spans, (relocalization, "relocalize"),
+            (LoopCloser, "on_relocalization"),
+            (LoopCloser, "_compute_sim3"), (LoopCloser, "_compute_sim3_depth"),
+            (Tracker, "_track"), (System, "track_rgbd")):
+        states.append(system.track_rgbd(*frames[-1]).state)
+    err = _centre_error(system, seq, 2.0)
+    log(f"phase 9 kidnap per frame 640x480: states after frame "
+        f"{KIDNAP_FRAMES - 1} {states[KIDNAP_FRAMES:]}, frame 5's view "
+        f"relocalized {err * 1e3:.2f} mm from the truth, drift corrections "
+        f"{system.n_reloc_corrections} (last Sim3 gate "
+        f"{system.loop._last_sim3_fail or 'passed'}); the relocalizing "
+        f"frame's host time: {_spans_line(spans)}")
+    if states[:KIDNAP_FRAMES] != ["OK"] * KIDNAP_FRAMES \
+            or states[KIDNAP_FRAMES:] != ["LOST", "LOST", "OK"] \
+            or err >= 0.05:
+        raise AssertionError(f"kidnap per frame: {states}, {err:.4f} m")
+    if len(calls) != 3:
+        raise AssertionError(f"{len(calls)} K1 calls on the relocalized "
+                             "frame")
+    for args, lo, hi in calls:
+        got = gm.gated_match(*args, lvl_min=lo, lvl_max=hi)
+        ref = gm.gated_match_plain(*args, lvl_min=lo, lvl_max=hi)
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, max(int((k - p).abs().max())
+                                 for k, p in zip(got, ref)))
+        if not all(torch.equal(k, p) for k, p in zip(got, ref)):
+            raise AssertionError("K1 on the relocalized frame: kernel != "
+                                 "plain")
+    log(f"  K1 on the {len(calls)} calls of the relocalized frame's track: "
+        f"bit-equal with plain")
+    # the kidnap through track_chunk
+    system = System(kid_cfg.replace(tracking=dataclasses.replace(
+        kid_cfg.tracking, pipeline_depth=1)))
+    frames = _kidnap_frames(world, [])
+    states = [system.track_rgbd(*frames[0]).state]
+    flat = frames[KIDNAP_FRAMES]
+    chunks = [frames[i:i + CHUNK] for i in range(1, KIDNAP_FRAMES - 1, CHUNK)]
+    chunks.append([frames[KIDNAP_FRAMES - 1]] + [flat] * (CHUNK - 1))
+    view = [(world[1][5 + j], world[2][5 + j], 3.0 + 0.04 * j)
+            for j in range(CHUNK)]
+    dropped = [(g, d, t - 1.0) for g, d, t in view]
+    for chunk in chunks + [dropped, view]:
+        g, d, t = zip(*chunk)
+        states += [st.state for st in system.track_chunk(list(g), list(d),
+                                                         list(t))]
+    states += [st.state for st in system.tracker.flush()]
+    err = _centre_error(system, seq, 3.0)
+    lost_at = states.index("LOST") if "LOST" in states else None
+    log(f"phase 9 kidnap through track_chunk, C = {CHUNK}: "
+        f"{len(states)} states, LOST {states.count('LOST')} (first at "
+        f"state {lost_at}), last {states[-CHUNK:]}, frame 5's view "
+        f"relocalized {err * 1e3:.2f} mm from the truth")
+    if lost_at is None or states[-CHUNK:] != ["OK"] * CHUNK or err >= 0.05 \
+            or 2.0 in {t for t, _, _ in system.trajectory}:
+        raise AssertionError(f"kidnap chunked: {states}, {err:.4f} m")
+    # the drift correction of a relocalization
+    drift_cfg = cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, max_frames_between_kf=4))
+    system = System(drift_cfg)
+    for f in frames[:KIDNAP_FRAMES]:
+        system.track_rgbd(*f)
+    m = system.tracker.map
+    k_last = system.tracker.last_kf_id
+    fids = m.kf_frame_id.cpu().numpy()
+    valid = m.kf_valid.cpu().numpy()
+    obs = m.kf_obs_lm.cpu().numpy()
+    mine = set(obs[k_last][obs[k_last] >= 0].tolist())
+    cand = next(int(k) for k in np.argsort(fids) if valid[k]
+                and int(k) != k_last
+                and len(mine & set(obs[k][obs[k] >= 0].tolist())) >= 30)
+    t_before = m.kf_t[k_last].cpu().numpy().copy()
+    _inject_drift(system, k_last, [0.04, -0.02, 0.03])
+    drift = float(np.linalg.norm(
+        system.tracker.map.kf_t[k_last].cpu().numpy() - t_before))
+    spans = {}
+    with host_spans(spans, *[(LoopCloser, n) for n in (
+            "_compute_sim3", "_compute_sim3_depth", "_correct",
+            "_search_and_fuse")]):
+        system._on_reloc(k_last, cand)
+    resid = float(np.linalg.norm(
+        system.tracker.map.kf_t[k_last].cpu().numpy() - t_before))
+    closed = system.last_loop is not None and system.last_loop.closed
+    log(f"phase 9 drift correction: keyframe {k_last} against {cand}, "
+        f"injected {drift * 1e3:.2f} mm, residual {resid * 1e3:.2f} mm, "
+        f"closed {closed}; host time: {_spans_line(spans)}")
+    if not closed or resid >= 0.35 * drift:
+        raise AssertionError("the injected drift was not corrected")
+    # the mask= path on the moving-object world
+    dseq, dgray, ddepth, dcfg = bench_world(MASK_FRAMES, SEED, dynamic=True)
+    system = System(dcfg)
+    states = [system.track_rgbd(dgray[i], ddepth[i],
+                                float(dseq.timestamps[i]),
+                                detections=detections(dseq, i),
+                                mask=dseq.masks[i]).state
+              for i in range(MASK_FRAMES)]
+    log(f"phase 9 track_rgbd(mask=, detections=) on the moving-object "
+        f"world, {MASK_FRAMES} frames: LOST frames {states.count('LOST')}, "
+        f"box status {tuple(int(x) for x in system.boxes.status)}, "
+        f"host-built dispatches {system.tracker.dispatches}")
+    if states != ["OK"] * MASK_FRAMES:
+        raise AssertionError(f"mask path: {states}")
+    launches = _launches(gm, hm)
+    log(f"  phase 9 launches {launches}")
+    return launches, k1_err
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -469,6 +821,10 @@ def main():
     chunk_launches = phase_chunk(gm, hm, kb)
     dyn_launches, k2_row = phase_dynamic_chunk(gm, hm, kb, k2_err)
     dyn_frame_launches = phase_dynamic_frame(gm, hm)
+    loop_launches, k2_row["max_abs_err"] = phase_loop_closure(
+        gm, hm, kb, k2_row["max_abs_err"])
+    reloc_launches, k1_row["max_abs_err"] = phase_relocalization(
+        gm, hm, kb, k1_row["max_abs_err"])
     rows = [k1_row, k2_row]
     for r in rows:
         r["launches"] = chunk_launches[r["name"]]
@@ -476,7 +832,9 @@ def main():
             "track_rgbd": frame_launches[r["name"]],
             "track_chunk": chunk_launches[r["name"]],
             "track_chunk_dynamic": dyn_launches[r["name"]],
-            "track_rgbd_dynamic": dyn_frame_launches[r["name"]]}
+            "track_rgbd_dynamic": dyn_frame_launches[r["name"]],
+            "loop_closure": loop_launches[r["name"]],
+            "relocalization": reloc_launches[r["name"]]}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_per_phase"]

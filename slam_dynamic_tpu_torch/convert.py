@@ -5,7 +5,9 @@ carries is the map, the frames, the box tracker, the ORB pattern and the
 config. These helpers take a JAX ``MapState``
 (``slam_dynamic_tpu/worldmap/state.py:27``) as a dict of numpy arrays
 into the port's ``MapState`` and back, a ``FrameData``
-(``frontend/frame.py:25``) likewise, the box tracker's state
+(``frontend/frame.py:25``) likewise (the map's persistent loop edges and
+their cursor ``n_loop`` included), a loop closer's keyframe database
+(``worldmap/kfdb.py:30``), the box tracker's state
 (``frontend/boxtrack.py:18``) by its fields, and rebuild the config
 dataclass tree from a plain dict (``dataclasses.asdict`` of either
 package's ``SystemConfig``). Nothing here imports JAX.
@@ -22,6 +24,7 @@ from . import config as cfg_mod
 from . import resolve_device
 from .frontend.boxtrack import BoxTrackerState
 from .frontend.frame import FrameData
+from .worldmap.kfdb import KFDatabase
 from .worldmap.state import MapState
 
 _DESC_FIELDS = ("kf_kp_desc", "lm_desc")
@@ -63,6 +66,15 @@ def frame_data_from_numpy(arrays: dict, device=None) -> FrameData:
             a = a.view(np.int32)
         out[name] = torch.from_numpy(np.array(a)).to(device)
     return FrameData(**out)
+
+
+def kfdb_from_numpy(arrays: dict, device=None) -> KFDatabase:
+    """A keyframe database's arrays (name -> numpy: ``word``, ``weight``,
+    ``valid``, e.g. a JAX ``LoopCloser.db``'s fields) -> the port's
+    ``KFDatabase`` on ``device``."""
+    device = resolve_device(device)
+    return KFDatabase(*(torch.from_numpy(np.array(arrays[f])).to(device)
+                        for f in KFDatabase._fields))
 
 
 def box_state_from_numpy(state) -> BoxTrackerState:

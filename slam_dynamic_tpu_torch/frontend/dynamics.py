@@ -1,15 +1,16 @@
 """Host half of the dynamic-object module.
 
-Port of the fused-path half of ``slam_dynamic_tpu/frontend/dynamics.py``
-(``DynamicsModule`` :27: ``pick_ref_fd`` :50, ``push_fd`` :68,
-``update_streaks`` :71, ``update_box3d`` :85): the queue of reference
-frames (cap 0.3 * fps; the reference frame is the newest one at least
-``ref_frame_age_s`` older), the per-box streaks (``dyn_confirm_frames``
-consecutive dynamic verdicts confirm a box, status 2) and the per-object
-3D state, gated and smoothed on the host. The classification itself runs
-inside the fused step (``frontend/fused.py``). Not ported yet:
-``pre_track`` / ``post_track`` (:131-178), which serve the host-built
-frames of the ``mask=`` path (ROADMAP item 14).
+Port of ``slam_dynamic_tpu/frontend/dynamics.py`` (``DynamicsModule``
+:27: ``pick_ref_fd`` :50, ``push_fd`` :68, ``update_streaks`` :71,
+``update_box3d`` :85, ``pre_track`` :131, ``post_track`` :165,
+``_pick_reference`` :169): the queues of reference frames (cap 0.3 * fps;
+the reference frame is the newest one at least ``ref_frame_age_s``
+older), the per-box streaks (``dyn_confirm_frames`` consecutive dynamic
+verdicts confirm a box, status 2) and the per-object 3D state, gated and
+smoothed on the host. On the fused path the classification runs inside
+the fused step (``frontend/fused.py``); on the host-built frames of the
+``mask=`` path ``pre_track`` classifies the boxes and reinstates the
+keypoints of static ones before the frame is tracked.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import SystemConfig
+from . import dynamics_ops as dops
 from .frame import empty_frame_data
 
 
@@ -27,6 +29,7 @@ class DynamicsModule:
         self.cfg = cfg
         self.device = device
         maxq = max(2, int(cfg.tracking.frame_queue_factor * cfg.camera.fps))
+        self.queue = collections.deque(maxlen=maxq)      # host-built Frames
         self.fd_queue = collections.deque(maxlen=maxq)   # (ts, FrameData)
         self._dummy = None
         # per-object 3D state, smoothed per frame: box track id -> dict
@@ -110,3 +113,40 @@ class DynamicsModule:
             self.obj_state[bid] = dict(
                 d=d, t=t, R=np.asarray(box3d[i, 4:13]).reshape(3, 3),
                 ext=np.asarray(box3d[i, 13:16]), ts=timestamp)
+
+    # ------------------ host-built frames (the mask= path) -------------
+    def pre_track(self, frame, boxes, tracker):
+        """Classify every tracked box of ``frame`` against the reference
+        frame before the frame is tracked, update the streaks and give the
+        keypoints of static boxes (status 1) back, so they take part in
+        tracking. One readback of the verdicts."""
+        ref = self._pick_reference(frame.timestamp)
+        if ref is None or boxes.boxes is None or len(boxes.boxes) == 0:
+            return
+        dc, dev = self.cfg.dynamic, self.device
+        bx = torch.as_tensor(np.asarray(boxes.boxes, np.float32), device=dev)
+        result = dops.classify_boxes(
+            tracker.cam, ref.data, frame.data, bx,
+            torch.ones(len(boxes.boxes), dtype=torch.bool, device=dev),
+            n_hyp=dc.ransac_hypotheses, thresh_px=dc.ransac_threshold_px,
+            chi2_h=dc.chi2_homography, chi2_f=dc.chi2_fundamental,
+            min_pairs=dc.min_pairs_for_model,
+            seed=torch.tensor(self.cfg.seed + frame.frame_id, device=dev))
+        self.update_streaks(boxes, result.verdict.cpu().numpy())
+        static_boxes = boxes.status == 1
+        if static_boxes.any():
+            frame.data = dops.reinstate_features(
+                frame.data, bx, torch.as_tensor(static_boxes, device=dev))
+
+    def post_track(self, frame, boxes, tracker):
+        """A tracked host-built frame joins the reference queue."""
+        self.queue.append(frame)
+
+    def _pick_reference(self, ts: float):
+        """The newest queued frame at least ``ref_frame_age_s`` older, or
+        None."""
+        best = None
+        for f in self.queue:
+            if ts - f.timestamp >= self.cfg.tracking.ref_frame_age_s:
+                best = f
+        return best

@@ -6,9 +6,9 @@ Port of ``slam_dynamic_tpu/frontend/frame.py`` (``FrameData`` :25,
 the one in-box test of the port. All N keypoint slots
 are kept and ``static_mask`` carries the dynamic-box partition, so shapes
 stay fixed. ``build_frame`` serves the frames the tracker builds outside
-the fused step (initialization and LOST frames): RGB-D, with the
-detector's boxes quarantining the keypoints inside them (the pixel
-``mask`` path is not ported yet).
+the fused step (initialization, LOST frames and the ``mask=`` path):
+RGB-D, with the detector's boxes and a dynamic-pixel mask quarantining
+the keypoints inside them.
 """
 from __future__ import annotations
 
@@ -80,10 +80,13 @@ def keypoints_in_boxes(xy: torch.Tensor, valid: torch.Tensor, boxes,
 def build_frame(cfg: SystemConfig, cam: Intrinsics, gray: np.ndarray,
                 frame_id: int, timestamp: float, depth_map: np.ndarray,
                 boxes: Optional[np.ndarray] = None,
-                box_valid: Optional[np.ndarray] = None) -> Frame:
+                box_valid: Optional[np.ndarray] = None,
+                mask: Optional[np.ndarray] = None) -> Frame:
     """Construct a frame from host images. uint16 depth is scaled to metres
     on the host, as the reference's ``build_frame`` does; keypoints inside
-    an active box [B, 4] are quarantined (``static_mask`` False)."""
+    an active box [B, 4] or on a pixel of ``mask`` [H, W] (True = dynamic,
+    the reference's Mask R-CNN path, Frame.cc:297-403) are quarantined
+    (``static_mask`` False)."""
     dev = cam.fx.device
     depth_map = np.asarray(depth_map)
     if depth_map.dtype == np.uint16:
@@ -97,11 +100,16 @@ def build_frame(cfg: SystemConfig, cam: Intrinsics, gray: np.ndarray,
     sm = depth_from_rgbd(
         torch.as_tensor(np.asarray(depth_map, np.float32), device=dev),
         kp.xy, kp.valid, cam.bf)
+    static = kp.valid & ~keypoints_in_boxes(xy, kp.valid, boxes, box_valid)
+    if mask is not None:
+        h, w = img.shape
+        mk = torch.as_tensor(np.asarray(mask, bool), device=dev)
+        xi = torch.round(kp.xy[:, 0]).to(torch.int64).clamp(0, w - 1)
+        yi = torch.round(kp.xy[:, 1]).to(torch.int64).clamp(0, h - 1)
+        static = static & ~mk[yi, xi]
     data = FrameData(xy=xy, xy_raw=kp.xy, level=kp.level, angle=kp.angle,
                      response=kp.response, desc=kp.desc, valid=kp.valid,
-                     ur=sm.u_right, depth=sm.depth,
-                     static_mask=kp.valid & ~keypoints_in_boxes(
-                         xy, kp.valid, boxes, box_valid),
+                     ur=sm.u_right, depth=sm.depth, static_mask=static,
                      scale=scale)
     data = pad_frame_data(data, cfg.capacity.max_keypoints)
     return Frame(data=data, frame_id=frame_id, timestamp=timestamp)

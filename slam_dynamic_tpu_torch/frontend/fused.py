@@ -5,7 +5,9 @@ Port of ``slam_dynamic_tpu/frontend/fused.py:54-279``
 ``_track_stages``, ``fused_track_step``), of temporal chunking
 (``fused_track_chunk`` :328 and ``fused_track_chunk_dyn`` :483 through
 ``_chunk_body`` :400) and of the dynamic-scene step
-(``fused_track_step_dyn`` :536). Per frame:
+(``fused_track_step_dyn`` :536), and of the step on a frame built on the
+host (``fused_track_prebuilt`` :518: after a relocalization and on the
+``mask=`` path). Per frame:
 
   extract -> undistort -> depth lookup -> box quarantine -> [dynamic
   scenes: H/F box classification against the reference frame, feature
@@ -197,6 +199,20 @@ def fused_track_step(m: MapState, cam: Intrinsics, bounds, image, aux,
                               depth_scale=depth_scale)
     R_pred, t_pred = _predict_inside(R_last, t_last, R_prev2, t_prev2,
                                      has_vel)
+    return _track_stages(m, cam, bounds, fd, last_obs_lm, R_pred, t_pred,
+                         R_last, t_last, ref_kf, mm_radius, local_radius,
+                         depth_th, scale_factor, min_inliers_track, True,
+                         max_kf, max_lm, n_levels)
+
+
+def fused_track_prebuilt(m: MapState, cam: Intrinsics, bounds,
+                         fd: FrameData, last_obs_lm, R_pred, t_pred, R_last,
+                         t_last, ref_kf, mm_radius, local_radius, depth_th,
+                         scale_factor, min_inliers_track, max_kf: int = 16,
+                         max_lm: int = 4096, n_levels: int = 8) -> FusedOut:
+    """The tracking stages on a FrameData built on the host
+    (``fused.py:518``), with the motion-model prediction given: K1 runs
+    three times, as in the fused step."""
     return _track_stages(m, cam, bounds, fd, last_obs_lm, R_pred, t_pred,
                          R_last, t_last, ref_kf, mm_radius, local_radius,
                          depth_th, scale_factor, min_inliers_track, True,

@@ -1,26 +1,32 @@
 """The tracking state machine for the RGB-D path.
 
 Port of ``slam_dynamic_tpu/frontend/tracking.py:131`` (``Tracker``):
-``step_images`` :193 with its pipelined branch (:276-307),
+``step_images`` :193 with its pipelined branch (:276-307) and its
+host-built-frame route in a non-OK state (:202-209),
 ``step_images_chunk`` :315 (temporal chunking, with the
-``chunk_eager_finalize`` and ``chunk_eager_upload_first`` branches),
+``chunk_eager_finalize`` and ``chunk_eager_upload_first`` branches; a
+non-OK state takes the per-frame route, :329-331, and in-flight frames
+are dropped after a LOST finalize, :346-350, :442-451),
 ``_ChunkPacket`` and ``_PacketRow`` :82-108, ``_finalize_one`` :494,
 ``_finalize_pending`` :516 and ``flush`` :583 (one ``flush`` here),
-``_bookkeep_pipelined`` :547 (``_record_pose``),
-``_initialize`` :723, ``_post_track`` :975 (with ``_split_dyn_packet`` :507),
-the keyframe decision ``_need_keyframe_counts`` :1055,
-``_create_keyframe`` :1070, the BoW fallback (``_bow_recover`` :55,
-``_bow_fallback``), and LOST handling with the reset policy of
-``_relocalize_then_track`` :833 for a tracker without a relocalizer. The
-branchy control stays on the host; per frame the device sees one fused
-step and the host reads one packet ([28] floats, [28 + 17 B] with the
-dynamic-scene ``dyn`` argument; one [C, ...] packet per chunk). Keyframe
-frames add one mapping-stage call and the keyframe hook (loop detection,
-wired by the System).
+``_bookkeep_pipelined`` :547 (``_record_pose``), ``process`` :632,
+``_bookkeep`` :644 (with the host velocity), ``_initialize`` :723,
+``_relocalize_then_track`` :833 (the ``relocalizer`` and ``on_reloc``
+hooks :157-164, and the young-map and ``max_lost_frames`` reset policy
+:858-883), ``_predict_pose`` :916, ``_track`` :926 (a host-built frame
+through ``fused_track_prebuilt``), ``_post_track`` :975 (with
+``_split_dyn_packet`` :507), the keyframe decision
+``_need_keyframe_counts`` :1055, ``_create_keyframe`` :1070 and the BoW
+fallback (``_bow_recover`` :55, ``_bow_fallback``). The branchy control
+stays on the host; per frame the device sees one fused step and the host
+reads one packet ([28] floats, [28 + 17 B] with the dynamic-scene ``dyn``
+argument; one [C, ...] packet per chunk). Keyframe frames add one
+mapping-stage call and the keyframe hook (loop closing, wired by the
+System); a LOST frame calls the relocalizer and, on success, the
+drift-correction hook.
 
-Not ported yet: the adaptive pipeline depth, stereo and mono,
-localization-only mode, relocalization and tracking a host-built frame
-(``_track`` :926). States: NOT_INITIALIZED -> OK <-> LOST.
+Not ported yet: the adaptive pipeline depth, stereo and mono, and
+localization-only mode. States: NOT_INITIALIZED -> OK <-> LOST.
 """
 from __future__ import annotations
 
@@ -32,15 +38,16 @@ import numpy as np
 import torch
 
 from ..backend.mapping_stage import insert_keyframe_stage
+from ..backend.relocalization import _match_frame_kf
 from ..config import SystemConfig
-from ..ops import hamming as hm
 from ..optim.pose_opt import optimize_pose
 from ..utils.camera import Intrinsics, undistorted_bounds
 from ..worldmap.keyframe_ops import make_keyframe
 from ..worldmap.state import MapState, empty_map, next_kf_slot
 from .frame import Frame, FrameData, build_frame
 from .fused import (fused_track_chunk, fused_track_chunk_dyn,
-                    fused_track_step, fused_track_step_dyn)
+                    fused_track_prebuilt, fused_track_step,
+                    fused_track_step_dyn)
 
 
 @dataclasses.dataclass
@@ -94,15 +101,6 @@ def _slot_probe(m: MapState) -> np.ndarray:
                       m.kf_R[s].reshape(-1), m.kf_t[s]]).cpu().numpy()
 
 
-def _match_frame_kf(frame_desc, frame_valid, kf_desc, kf_valid, kf_obs):
-    """Descriptor match frame -> keyframe restricted to keypoints with
-    landmarks (``backend/relocalization.py:61``); -1 where unmatched."""
-    has_lm = kf_valid & (kf_obs >= 0)
-    dist = hm.masked_hamming_matrix(frame_desc, frame_valid, kf_desc, has_lm)
-    idx, _, ok = hm.match_nn(dist, max_dist=50, ratio=0.75, mutual=True)
-    return torch.where(ok, kf_obs[idx.clamp(0, kf_obs.shape[0] - 1)], -1)
-
-
 def _bow_recover(m: MapState, cam, fd: FrameData, k, R0, t0):
     """TrackReferenceKeyFrame analog: match the frame against the
     reference keyframe's landmark keypoints with no projection gate, then
@@ -144,8 +142,18 @@ class Tracker:
         self._traj_by_slot = {}   # kf slot -> trajectory indices
         self._slot_gen = {}       # kf slot -> recycle generation
         # keyframe hook: k -> None, called after keyframe slot k is
-        # inserted (loop detection, wired by the System)
+        # inserted (loop closing, wired by the System)
         self.on_keyframe: Optional[Callable[[int], None]] = None
+        # relocalizer: frame -> (ok, R, t, obs_lm[, cand_slot]) (wired by
+        # the System; a 4-tuple is accepted, as the reference does)
+        self.relocalizer: Optional[Callable] = None
+        # drift-correction hook (k_last_slot, cand_slot) -> None, called on
+        # a successful relocalization before tracking resumes, so the
+        # corrected local map is what the frame is tracked against
+        self.on_reloc: Optional[Callable[[int, int], None]] = None
+        # T_cur T_last^-1 of the last two per-frame bookkept frames (host
+        # numpy), the motion model of a host-built frame's track
+        self.velocity: Optional[Tuple[np.ndarray, np.ndarray]] = None
         # pipelined and chunked modes: (frame, out, dyn) awaiting readback
         self._pending = collections.deque()
         # fused tracking dispatches (one per frame or chunk) and the
@@ -220,15 +228,21 @@ class Tracker:
         return (self.last_frame.obs_lm, R_last, t_last, R_prev2, t_prev2,
                 dc["vel1"])
 
-    def _track_kwargs(self):
+    def _stage_kwargs(self):
+        """The tracking stages' arguments (``fused.py:_track_stages``)."""
         cfg, dc = self.cfg, self._scalar_consts()
         return dict(
-            orb_cfg=cfg.orb, mm_radius=dc["mm_radius"],
-            local_radius=dc["local_radius"], depth_th=dc["depth_th"],
-            scale_factor=dc["sf"], min_inliers_track=dc["min_tr"],
+            mm_radius=dc["mm_radius"], local_radius=dc["local_radius"],
+            depth_th=dc["depth_th"], scale_factor=dc["sf"],
+            min_inliers_track=dc["min_tr"],
             max_kf=cfg.capacity.local_ba_keyframes,
-            max_lm=cfg.capacity.local_ba_landmarks,
-            n_levels=cfg.orb.n_levels, n_slots=cfg.capacity.max_keypoints)
+            max_lm=cfg.capacity.local_ba_landmarks, n_levels=cfg.orb.n_levels)
+
+    def _track_kwargs(self):
+        """The fused steps' arguments: the stages' and the frame build's."""
+        return dict(orb_cfg=self.cfg.orb,
+                    n_slots=self.cfg.capacity.max_keypoints,
+                    **self._stage_kwargs())
 
     def _ref_at_dispatch(self):
         """(reference keyframe slot, its recycle generation) as the fused
@@ -279,18 +293,12 @@ class Tracker:
         the dynamic-scene step (verdicts and per-box 3D state come back in
         ``TrackStats.verdicts`` / ``box3d``)."""
         if self.state != "OK":
+            # finalize the frames in flight (one may recover tracking),
+            # then track this frame built on the host
             self.flush()
-            if self.state == "OK":
-                raise NotImplementedError(
-                    "a pipelined frame recovered tracking after a LOST "
-                    "frame: tracking a host-built frame (Tracker._track) is "
-                    "not ported yet (ROADMAP Queue 1, item 14)")
-            frame = build_frame(self.cfg, self.cam, gray, frame_id,
-                                timestamp, depth, boxes, box_active)
-            st = self._initialize(frame) \
-                if self.state == "NOT_INITIALIZED" else self._lost(frame)
-            self._bookkeep(frame)
-            return st
+            return self.process(build_frame(
+                self.cfg, self.cam, gray, frame_id, timestamp, depth, boxes,
+                box_active))
         dc = self._scalar_consts()
         chain = self._chain_inputs()
         g_arr, d_arr, depth_scale = self._stage_inputs(gray, depth)
@@ -432,8 +440,31 @@ class Tracker:
         return sts
 
     # ------------------------------------------------------------------
+    def process(self, frame: Frame) -> TrackStats:
+        """A frame built on the host: initialization, tracking (OK) or
+        relocalization (LOST), then the per-frame bookkeeping."""
+        if self.state == "NOT_INITIALIZED":
+            st = self._initialize(frame)
+        elif self.state == "OK":
+            st = self._track(frame)
+        else:
+            st = self._relocalize_then_track(frame)
+        self._bookkeep(frame)
+        return st
+
     def _bookkeep(self, frame: Frame):
-        self._record_pose(frame)
+        """The per-frame bookkeeping: trajectory entry and host velocity
+        (the pose comes from the packet, no extra device read)."""
+        if frame.R is not None:
+            self._record_pose(frame)
+            last = self.last_frame
+            if last is not None and last.R is not None:
+                Rl = last.np_R if last.np_R is not None \
+                    else last.R.cpu().numpy()
+                tl = last.np_t if last.np_t is not None \
+                    else last.t.cpu().numpy()
+                Rv = frame.np_R @ Rl.T
+                self.velocity = (Rv, frame.np_t - Rv @ tl)
         self.last_frame = frame
 
     def _record_pose(self, frame: Frame):
@@ -531,10 +562,29 @@ class Tracker:
                           np_R=np.eye(3, dtype=np.float32),
                           np_t=np.zeros(3, np.float32))
 
-    def _lost(self, frame: Frame) -> TrackStats:
-        """A LOST frame (no relocalizer is ported yet): a young map (<= 5 KFs)
-        is rebuilt from the next frame with enough features, a prolonged
-        loss (max_lost_frames) resets the map; otherwise stay LOST."""
+    def _relocalize_then_track(self, frame: Frame) -> TrackStats:
+        """A frame while LOST: relocalize it; on success call the
+        drift-correction hook (last keyframe before the loss, matched
+        keyframe) and track the frame against the corrected local map.
+        Otherwise the reset policy: a young map (<= 5 keyframes) is
+        rebuilt from a frame with enough features, a loss of
+        ``max_lost_frames`` frames resets the map; a near-featureless
+        frame never resets."""
+        if self.relocalizer is not None:
+            res = self.relocalizer(frame)
+            ok, R, t, obs = res[:4]
+            cand = int(res[4]) if len(res) > 4 else -1
+            if ok:
+                frame.R, frame.t = R, t
+                frame.obs_lm = obs
+                self.velocity = None
+                self._lost_streak = 0
+                if self.on_reloc is not None and cand >= 0 \
+                        and self.last_kf_id >= 0:
+                    self.on_reloc(self.last_kf_id, cand)
+                self.last_frame = frame
+                self.state = "OK"
+                return self._track(frame)
         n_feat = int(frame.data.valid.sum())
         if self.n_kf_host <= 5 and n_feat >= 50:
             self.reset()
@@ -548,6 +598,38 @@ class Tracker:
         frame.obs_lm = torch.full((frame.data.xy.shape[0],), -1,
                                   dtype=torch.int32, device=self.device)
         return TrackStats("LOST")
+
+    def _predict_pose(self):
+        """The constant-velocity prediction from the last frame's pose, on
+        the host."""
+        lf = self.last_frame
+        Rl = lf.np_R if lf.np_R is not None else lf.R.cpu().numpy()
+        tl = lf.np_t if lf.np_t is not None else lf.t.cpu().numpy()
+        if self.velocity is None:
+            return Rl, tl
+        Rv, tv = self.velocity
+        return Rv @ Rl, Rv @ tl + tv
+
+    def _track(self, frame: Frame) -> TrackStats:
+        """Track a host-built frame: the tracking stages of the fused step
+        (``fused_track_prebuilt``), one packet readback."""
+        dev = self.device
+        R_pred, t_pred = self._predict_pose()
+        lf = self.last_frame
+        last_ids = lf.obs_lm if lf.obs_lm is not None else torch.full(
+            (frame.data.xy.shape[0],), -1, dtype=torch.int32, device=dev)
+        frame.ref_kf, frame.ref_gen = self._ref_at_dispatch()
+
+        def up(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+        out = fused_track_prebuilt(
+            self.map, self.cam, self.bounds, frame.data, last_ids,
+            up(R_pred), up(t_pred), lf.R, lf.t, self._ref_kf_const(),
+            **self._stage_kwargs())
+        self.dispatches += 1
+        out = out._replace(packed=_PacketRow(
+            _ChunkPacket(out.packed[None], self), 0))
+        return self._post_track(frame, out)
 
     def reset(self):
         """Clear map and state; the tracked trajectory is kept as absolute
@@ -565,6 +647,7 @@ class Tracker:
         self._kf_pose_cache = {}
         self._ref_kf_dev = None
         self._prev2_pose = None
+        self.velocity = None
         self.n_kf_host = 0
         self.kf_seq = 0
         self._lost_streak = 0

@@ -2,7 +2,8 @@
 the config ``bench.py`` runs by default (1000 ORB features and the
 capacities of ``bench.py:250-261``), in camera-native dtypes; with
 ``dynamic`` the moving-object world and precomputed boxes of
-``bench.py --dynamic`` (:228-229, :257).
+``bench.py --dynamic`` (:228-229, :257); with ``trajectory="orbit"`` the
+closed circuit of the loop-closure tests (``io/synthetic.py``).
 """
 from __future__ import annotations
 
@@ -23,9 +24,10 @@ def detections(seq, i: int):
     return seq.boxes[i][seq.box_valid[i]] if seq.box_valid[i, 0] else None
 
 
-def bench_world(n_frames: int = 60, seed: int = 0, dynamic: bool = False):
+def bench_world(n_frames: int = 60, seed: int = 0, dynamic: bool = False,
+                trajectory: str = "sweep"):
     """(seq, gray uint8 [T,H,W], depth uint16 millimetres [T,H,W], cfg)."""
-    scfg = SynthConfig(n_frames=n_frames, seed=seed,
+    scfg = SynthConfig(n_frames=n_frames, seed=seed, trajectory=trajectory,
                        **(DYNAMIC_OBJECT if dynamic else {}))
     seq = generate(scfg)
     gray8 = np.clip(seq.gray, 0, 255).astype(np.uint8)

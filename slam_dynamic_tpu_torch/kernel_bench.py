@@ -192,22 +192,29 @@ def recording_k1(calls: list):
 
 
 @contextlib.contextmanager
-def recording_k2(calls: list):
+def recording_k2(calls: list, every: bool = False):
     """Within the block, every K2 call of the dynamic step's box
     classification (``frontend/dynamics_ops.py``) appends a copy of its
-    input pair to ``calls``; the calls themselves run as they would."""
+    input pair to ``calls``; with ``every``, so does every other K2 call
+    (the Hamming matrices of mapping, relocalization and loop closing,
+    through ``ops/hamming.py``). The calls themselves run as they
+    would."""
     from .frontend import dynamics_ops
     from .ops import hamming as hm
+    kernel = hm.hamming_matrix
 
     def record(a, b):
         calls.append((a.clone(), b.clone()))
-        return hm.hamming_matrix(a, b)
+        return kernel(a, b)
 
     dynamics_ops.hamming_matrix = record
+    if every:
+        hm.hamming_matrix = record
     try:
         yield calls
     finally:
-        dynamics_ops.hamming_matrix = hm.hamming_matrix
+        dynamics_ops.hamming_matrix = kernel
+        hm.hamming_matrix = kernel
 
 
 def path_k1_calls(n_frames: int = PATH_FRAMES, seed: int = 0):

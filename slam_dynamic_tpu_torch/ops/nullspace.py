@@ -1,8 +1,9 @@
 """Pure-matmul nullspace solve for batches of small systems.
 
 Port of ``slam_dynamic_tpu/ops/nullspace.py`` (``inv_newton_schulz``,
-``null_vector``, ``inv3`` :119, ``rank2_project`` :138), the batched DLT
-solves of triangulation and of the H/F RANSAC: the least right-singular
+``smallest_eigvec``, ``null_vector``, ``inv3`` :119, ``rank2_project``
+:138), the batched DLT solves of triangulation, of the H/F RANSAC and of
+the PnP hypotheses: the least right-singular
 vector of A from its Gram matrix by Newton-Schulz inversion, repeated
 squaring (inverse power iteration) and iterative refinement against A
 itself; the closed-form 3x3 inverse and the SVD-free rank-2 projection.
@@ -38,6 +39,18 @@ def _extract_smallest(X: torch.Tensor, squarings: int) -> torch.Tensor:
     v = v[..., 0]
     return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
                            min=1e-30)
+
+
+def smallest_eigvec(M: torch.Tensor, shift_rel: float = 1e-5,
+                    ns_iters: int = 20, squarings: int = 3) -> torch.Tensor:
+    """Unit eigenvector of the smallest eigenvalue of symmetric PSD
+    M [..., n, n] -> [..., n] (the sign is arbitrary, as an SVD's)."""
+    n = M.shape[-1]
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
+    tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+    eps = shift_rel * tr + 1e-30
+    X = inv_newton_schulz(M + eps[..., None, None] * eye, ns_iters)
+    return _extract_smallest(X, squarings)
 
 
 def null_vector(A: torch.Tensor, shift_rel: float = 1e-5,

@@ -1,19 +1,21 @@
 """System facade: the public entry point of the port.
 
 Port of ``slam_dynamic_tpu/system.py:29`` (``System.__init__``),
-``_ensure_voc`` :75, ``_on_keyframe`` :99, the box state
-(``_maybe_detect`` :164 for precomputed boxes, ``_advance_boxes`` :188,
-``_active_boxes`` :197), ``track_rgbd`` :206 through its fused-path
-branch (:219-239), ``track_chunk`` :271, ``_dyn_args`` :335,
+``_ensure_voc`` :75, ``_on_keyframe`` :99, ``_on_reloc`` :125,
+``_relocalize`` :152, the box state (``_maybe_detect`` :164 for
+precomputed boxes, ``_advance_boxes`` :188, ``_active_boxes`` :197),
+``track_rgbd`` :206 (the fused path and the ``mask=`` path, :250-262),
+``track_chunk`` :271, ``_track_common`` :325, ``_dyn_args`` :335,
 ``_dyn_after`` :377, ``object_states`` :443, the ``trajectory`` property
 and the trajectory writers. The port's System tracks and maps RGB-D
-frames, per frame or in temporal chunks, runs loop detection on every
-keyframe, and with the detector's boxes (``DetectorConfig.mode =
-"precomputed"``, the library default) runs the dynamic-object module:
-box tracking, the fused H/F reclassification of the boxes and the
-per-object 3D state. Not ported yet: the Sim3 verification and
-correction of a detected loop (a candidate raises), relocalization (a
-LOST frame waits for the reset policy), the ``mask=`` path, the online
+frames, per frame or in temporal chunks; on every keyframe it looks for
+a loop and verifies and corrects one it finds; a LOST frame is
+relocalized, and a relocalization corrects the drift it reveals. With
+the detector's boxes (``DetectorConfig.mode = "precomputed"``, the
+library default) it runs the dynamic-object module: box tracking, the
+fused H/F reclassification of the boxes and the per-object 3D state, or
+with a dynamic-pixel ``mask`` the host-built frame's classification. Not
+ported yet: the post-loop global BA, localization-only mode, the online
 detector, other sensors and dense mapping.
 """
 from __future__ import annotations
@@ -25,10 +27,12 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .backend import relocalization
 from .backend.loop_closing import LoopCloser, LoopResult
 from .config import SystemConfig
 from .frontend.boxtrack import BoxTrackerState, track_boxes
 from .frontend.dynamics import DynamicsModule
+from .frontend.frame import Frame, build_frame
 from .frontend.tracking import Tracker, TrackStats
 from .io import trajectory as traj_io
 from .models import vocabulary as voc_mod
@@ -59,7 +63,8 @@ class System:
                 "DetectorConfig(mode='precomputed')")
         if cfg.loop.run_global_ba:
             raise NotImplementedError(
-                "the post-loop global BA is not ported yet; use "
+                "the post-loop global BA is not ported yet (ROADMAP item "
+                "20, with the sharded BA it is built on); use "
                 "LoopConfig(run_global_ba=False)")
         path = cfg.vocabulary.path
         if path and not str(path).endswith(".npz"):
@@ -81,10 +86,13 @@ class System:
         self.voc_source = None     # the .npz read, or how it was trained
         self.loop = None
         self.last_loop = None
+        self.n_reloc_corrections = 0
         if path:
             self.voc = voc_mod.load(path, self.device)
             self.voc_source = path
         self.tracker.on_keyframe = self._on_keyframe
+        self.tracker.relocalizer = self._relocalize
+        self.tracker.on_reloc = self._on_reloc
 
     def _ensure_voc(self):
         if self.voc is None:
@@ -123,6 +131,36 @@ class System:
                                           seq=self.tracker.kf_seq)
         self.tracker.map = m
         self.last_loop: LoopResult = result
+
+    def _on_reloc(self, k_last: int, cand: int):
+        """The drift correction of a successful relocalization (the
+        tracker's ``on_reloc`` hook): the loop between the last keyframe
+        before the loss and the matched one goes through
+        ``LoopCloser.on_relocalization``; a correction moves keyframe
+        poses, so the tracker's cached keyframe poses are dropped."""
+        if self.loop is None:
+            return
+        m, result = self.loop.on_relocalization(
+            self.tracker.map, k_last, cand, True, seq=self.tracker.kf_seq)
+        if result.closed:
+            self.tracker.map = m
+            self.tracker._kf_pose_cache.clear()
+            self.last_loop = result
+            # its own counter: the next keyframe's result replaces last_loop
+            self.n_reloc_corrections += 1
+
+    def _relocalize(self, frame):
+        """The tracker's relocalizer: BoW candidates from the loop
+        closer's keyframe database, PnP and pose polish
+        (``backend/relocalization.py``), seeded by the frame id."""
+        if self.loop is None:
+            return False, None, None, None, -1
+        return relocalization.relocalize(
+            self.tracker.map, self.loop.db, self.voc, self.cam, frame.data,
+            seed=self.cfg.seed + frame.frame_id,
+            min_inliers=self.cfg.tracking.min_inliers_after_reloc,
+            use_direct_index=self.cfg.vocabulary.use_direct_index,
+            di_level=self.cfg.vocabulary.direct_index_level)
 
     # ------------------------------------------------------------------
     def _advance_boxes(self, detections: Optional[np.ndarray]):
@@ -194,13 +232,16 @@ class System:
         float metres) depth in, one fused device step per tracked frame.
         ``detections`` [D, 4] are this frame's boxes (x0, y0, x1, y1);
         with the dynamic-object module on they are tracked, classified and
-        their keypoints quarantined or reinstated in the same step."""
-        if mask is not None:
-            raise NotImplementedError(
-                "track_rgbd(mask=...): the pixel-mask path tracks a "
-                "host-built frame, not ported yet (ROADMAP item 14)")
+        their keypoints quarantined or reinstated in the same step.
+        ``mask`` [H, W] (True = dynamic pixel) quarantines the keypoints on
+        it; such a frame is built and tracked on the host
+        (``_track_common``), its boxes classified before it is tracked."""
         self._advance_boxes(detections)
         boxes, bvalid = self._active_boxes()
+        if mask is not None:
+            frame = build_frame(self.cfg, self.cam, gray, self.frame_id,
+                                timestamp, depth, boxes, bvalid, mask=mask)
+            return self._track_common(frame)
         dyn = self._dyn_args(timestamp, stride=True)
         if dyn is not None:
             # classification sees every box (a static box can turn
@@ -249,6 +290,17 @@ class System:
                 if fr.frame_id >= first_id:
                     self.dynamics.push_fd(fr.timestamp, fr.data)
         return sts
+
+    def _track_common(self, frame: Frame) -> TrackStats:
+        """A host-built frame: box classification and reinstatement
+        before tracking, the reference queue after it."""
+        if self.dynamics is not None:
+            self.dynamics.pre_track(frame, self.boxes, self.tracker)
+        st = self.tracker.process(frame)
+        if self.dynamics is not None and st.state == "OK":
+            self.dynamics.post_track(frame, self.boxes, self.tracker)
+        self.frame_id += 1
+        return st
 
     @property
     def object_states(self) -> dict:

@@ -2,7 +2,8 @@
 
 Port of ``slam_dynamic_tpu/worldmap/state.py`` (``MapState`` :27,
 ``empty_map`` :72, ``update_covisibility`` :130, ``next_kf_slot`` :152,
-``insert_keyframe`` :168, ``add_landmarks`` :214). Keyframes and landmarks
+``insert_keyframe`` :168, ``add_landmarks`` :214, ``add_loop_edge`` :113,
+``covisible_keyframes`` :262). Keyframes and landmarks
 live in padded tensors with validity masks, at the capacities of
 ``config.CapacityConfig``. Every function returns a new ``MapState`` and
 leaves its input untouched (the mapping stage selects between the entry
@@ -50,7 +51,8 @@ class MapState(NamedTuple):
     lm_found: torch.Tensor      # [L] int32
     lm_first_kf: torch.Tensor   # [L] int32
     lm_n_obs: torch.Tensor      # [L] int32
-    # --- persistent loop edges (written by loop closing, not yet ported) ---
+    # --- persistent loop edges (loop closing keeps every verified S_ji so
+    # later essential-graph runs keep past constraints) ---
     loop_i: torch.Tensor        # [E] int32
     loop_j: torch.Tensor        # [E] int32
     loop_s: torch.Tensor        # [E] float32
@@ -218,3 +220,34 @@ def add_landmarks(m: MapState, pos, desc, normal, dist_min, dist_max,
         lm_found=put(m.lm_found, 1, 1),
         kf_obs_lm=obs,
         n_lm=(m.n_lm + created).to(torch.int32))
+
+
+def add_loop_edge(m: MapState, i: int, j: int, s, R, t) -> MapState:
+    """Record a verified loop constraint S_ji (host-side: loops are rare;
+    reads the edge cursor back). A full edge table is left unchanged."""
+    E = m.loop_valid.shape[0]
+    e = int(m.n_loop)
+    if e >= E:
+        return m
+    dev = m.loop_R.device
+
+    def put(arr, val):
+        out = arr.clone()
+        out[e] = torch.as_tensor(val, dtype=arr.dtype, device=dev)
+        return out
+
+    return m._replace(
+        loop_i=put(m.loop_i, i), loop_j=put(m.loop_j, j),
+        loop_s=put(m.loop_s, float(s)), loop_R=put(m.loop_R, R),
+        loop_t=put(m.loop_t, t), loop_valid=put(m.loop_valid, True),
+        n_loop=torch.full((), e + 1, dtype=torch.int32, device=dev))
+
+
+def covisible_keyframes(m: MapState, k, n_best: int, min_weight: int = 15):
+    """(ids, weights, strong) of keyframe k's n_best most covisible
+    keyframes (KeyFrame::GetBestCovisibilityKeyFrames); ties keep the lower
+    slot, as ``jax.lax.top_k``."""
+    w = m.covis[k] * m.kf_valid
+    vals, idx = torch.sort(w, descending=True, stable=True)
+    vals, idx = vals[:n_best], idx[:n_best]
+    return idx, vals, vals >= min_weight

@@ -5,7 +5,7 @@ both as shipped with loop detection on, run as ``bench.py``'s chunked
 mode runs them: one frame to initialize, then chunks of C = 6 frames with
 one chunk in flight and a keyframe at least every 3 frames, far enough
 that the loop detector scores keyframes 10 and 11. The relocalizer stays
-off in the JAX System (not ported yet; no frame is LOST here).
+off in the JAX System (no frame is LOST here).
 
 Tolerances: the same frames, states and keyframe decisions, the same
 ``_detect`` results and streaks, keyframe-database rows equal where the

@@ -4,7 +4,7 @@ is transformed, added to the keyframe database and, from the 10th on,
 scored for a loop), on the 320x240 world at C = 6 with one chunk in
 flight (``bench.py``'s default ``pipeline_depth=1``) and a keyframe at
 least every 3 frames, past the 12th keyframe. The relocalizer stays off
-in the JAX System (not ported yet; no frame is LOST here).
+in the JAX System (no frame is LOST here).
 
 Tolerances: the same frames, states and keyframe decisions and the same
 ``_detect`` results and streaks on every keyframe; keyframe-database

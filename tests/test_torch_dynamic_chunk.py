@@ -3,7 +3,7 @@ System.track_chunk(..., detections=) against the JAX System's, on the
 320x240 moving-object world of ``tests/test_e2e_dynamic.py`` (31 frames,
 C = 6, one chunk in flight as ``bench.py --dynamic`` runs it, the H/F
 classification on every 2nd chunk frame). The relocalizer stays off in
-the JAX System (not ported yet; no frame is LOST here).
+the JAX System (no frame is LOST here).
 
 The two packages draw their RANSAC samples differently (JAX's threefry
 against the port's hash, seeded from the pose on the device), so the

@@ -3,9 +3,9 @@ System.track_rgbd(..., detections=) against the JAX System's, on the
 320x240 falsely boxed world of ``tests/test_e2e_dynamic.py`` (a static
 object in a detector box, 31 frames), classifying every 2nd frame
 (``classify_every = 2``), so both forms of the dynamic step run. The
-relocalizer stays off in the JAX System (not ported yet; no frame is
-LOST here). Also: the library's default config constructs, and the parts
-not ported yet raise with their ROADMAP item.
+relocalizer stays off in the JAX System (no frame is LOST here). Also:
+the library's default config constructs, the parts not ported yet raise
+with their ROADMAP item, and the ``mask=`` path runs.
 
 The RANSAC samples differ between the packages, so the comparison is by
 outcome. Tolerances: every frame OK on both; the same keyframe decisions
@@ -98,7 +98,12 @@ def test_default_config_constructs_and_unported_parts_raise(world):
                device="cpu")
     with pytest.raises(NotImplementedError, match="item 17"):
         System(TC.SystemConfig(sensor="stereo"), device="cpu")
-    _, seq, gray8, depth16 = world
-    with pytest.raises(NotImplementedError, match="item 14"):
-        system.track_rgbd(gray8[0], depth16[0], 0.0,
-                          mask=np.zeros(gray8[0].shape, bool))
+    with pytest.raises(NotImplementedError, match="item 20"):
+        System(TC.SystemConfig(loop=TC.LoopConfig(run_global_ba=True)),
+               device="cpu")
+    # the mask= path is ported: a frame builds on the host and initializes
+    scfg, seq, gray8, depth16 = world
+    tcfg = dynamic_configs(scfg)[1]
+    st = System(tcfg, device="cpu").track_rgbd(
+        gray8[0], depth16[0], 0.0, mask=np.zeros(gray8[0].shape, bool))
+    assert st.state == "OK" and st.is_keyframe

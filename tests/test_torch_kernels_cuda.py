@@ -339,3 +339,83 @@ def test_ransac_draws_equal_on_card_and_cpu(cuda_device):
         g = sample_indices(seed.to(cuda_device), stream, 256, k,
                            mask.to(cuda_device))
         assert torch.equal(c, g.cpu())
+
+
+@pytest.mark.cuda
+def test_pnp_and_sim3_draws_equal_on_card_and_cpu(cuda_device):
+    """The PnP (stream 2) and Sim3 (stream 3) samples of relocalization
+    and loop verification, drawn from the same seed, do not depend on the
+    device."""
+    from slam_dynamic_tpu_torch.ops.pnp import PNP_STREAM
+    from slam_dynamic_tpu_torch.ops.horn import SIM3_STREAM
+    from slam_dynamic_tpu_torch.ops.ransac import sample_indices
+    mask = torch.from_numpy(np.random.default_rng(10).random(2048) < 0.1)
+    for k, stream, seed in ((6, PNP_STREAM, 7), (3, SIM3_STREAM, 1234 + 17),
+                            (3, SIM3_STREAM, 4321 + 17)):
+        s = torch.tensor(seed, dtype=torch.int64)
+        c = sample_indices(s, stream, 128, k, mask)
+        g = sample_indices(s.to(cuda_device), stream, 128, k,
+                           mask.to(cuda_device))
+        assert torch.equal(c, g.cpu())
+        assert bool(mask[c].all())
+
+
+@pytest.mark.cuda
+def test_pose_graph_solve_on_card_matches_cpu(cuda_device):
+    """The essential-graph solve at bench capacity (128 keyframes, an
+    896 x 896 system, 4096 padded edges with duplicates): the card's
+    result within 1e-4 of the CPU's (the scatter-add's order of sums is
+    not fixed on the card)."""
+    from slam_dynamic_tpu_torch.optim import pose_graph as pg
+    from slam_dynamic_tpu_torch.utils import sim3 as s3
+    rng = np.random.default_rng(11)
+    K, n_kf, E = 128, 100, 4096
+    phi = rng.normal(0, 0.3, (K, 3)).astype(np.float32)
+    R = s3.so3_exp(torch.from_numpy(phi))
+    t = torch.from_numpy(rng.normal(0, 1.0, (K, 3)).astype(np.float32))
+    pairs = [(k, k - 1) for k in range(1, n_kf)] + [(n_kf - 1, 0)] * 2
+    pairs += [tuple(rng.integers(0, n_kf, 2)) for _ in range(300)]
+    e_i = np.zeros(E, np.int64)
+    e_j = np.zeros(E, np.int64)
+    e_i[:len(pairs)], e_j[:len(pairs)] = zip(*pairs)
+    valid_e = np.zeros(E, bool)
+    valid_e[:len(pairs)] = e_i[:len(pairs)] != e_j[:len(pairs)]
+    # measurements from perturbed poses: the graph has something to fix
+    Rm = s3.so3_exp(torch.from_numpy(rng.normal(0, 0.02, (K, 3)).astype(
+        np.float32))) @ R
+    ei, ej = torch.from_numpy(e_i), torch.from_numpy(e_j)
+    meas_R = Rm[ej] @ Rm[ei].transpose(-1, -2)
+    meas_t = t[ej] - (meas_R @ t[ei][..., None])[..., 0] + 0.01
+    fixed = torch.zeros(K, dtype=torch.bool)
+    fixed[0] = True
+    problem = pg.PoseGraphProblem(
+        s=torch.ones(K), R=R, t=t, fixed=fixed,
+        valid=torch.arange(K) < n_kf, e_i=ei, e_j=ej, e_s=torch.ones(E),
+        e_R=meas_R, e_t=meas_t, e_valid=torch.from_numpy(valid_e),
+        e_weight=torch.where(torch.from_numpy(valid_e), 1.0, 0.0))
+    cpu = pg.optimize_pose_graph(problem, iters=20, fix_scale=True)
+    gpu = pg.optimize_pose_graph(problem._replace(**{
+        f: getattr(problem, f).to(cuda_device)
+        for f in problem._fields}), iters=20, fix_scale=True)
+    for a, b in zip(cpu, gpu):
+        assert (a - b.cpu()).abs().max() < 1e-4
+    assert (cpu[2] - t).abs().max() > 1e-3          # the graph moved
+
+
+@pytest.mark.cuda
+def test_k2_on_a_loop_projection_pair_on_card(cuda_device):
+    """K2 at the loop-projection count's shape: 4096 loop-neighbourhood
+    landmark descriptors (rows past the set's end are zero, the padding
+    of ``_loop_landmark_set``) against a keyframe's 2048 keypoints with
+    invalid slots, bit-equal with its plain version."""
+    rng = np.random.default_rng(12)
+    lm = _desc(rng, 4096)
+    lm[3000:] = 0
+    kp = _desc(rng, 2048)
+    kp[1700:] = 0
+    a, b = _torch([lm, kp], cuda_device)
+    before = hm.launches
+    d = hm.hamming_matrix(a, b)
+    assert hm.launches == before + 1
+    assert d.shape == (4096, 2048)
+    assert torch.equal(d, hm.hamming_matrix_plain(a, b))

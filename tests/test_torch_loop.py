@@ -135,17 +135,40 @@ def _closer(monkeypatch, detect):
 
 
 def test_on_keyframe_raises_on_a_candidate(monkeypatch):
-    """A candidate needs Sim3 verification and loop correction, which are
-    not ported: on_keyframe raises instead of skipping the loop."""
+    """A candidate no longer raises: on_keyframe verifies it
+    (``_compute_sim3``); a failed verification leaves the map alone, a
+    verified one runs the correction and the fuse and closes the loop.
+    Either way the keyframe's vector is added to the database."""
     calls = []
 
     def detect(self, m, k, hist, seq=None):
-        calls.append((k, seq))
+        calls.append(("detect", k, seq))
         return 0
     closer, m = _closer(monkeypatch, detect)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        closer.on_keyframe(m, 1, True, seq=12)
-    assert calls == [(1, 12)]
+    verdicts = iter([(False, None, None, None, 0, 0),
+                     (True, torch.tensor(1.0), torch.eye(3), torch.zeros(3),
+                      33, 61)])
+
+    def compute_sim3(self, m, k, cand, stereo):
+        calls.append(("sim3", k, cand, stereo))
+        return next(verdicts)
+    monkeypatch.setattr(tlc.LoopCloser, "_compute_sim3", compute_sim3)
+    monkeypatch.setattr(tlc.LoopCloser, "_correct",
+                        lambda self, m, k, c, s, R, t:
+                        calls.append(("correct", k, c)) or m)
+    monkeypatch.setattr(tlc.LoopCloser, "_search_and_fuse",
+                        lambda self, m, k, c:
+                        calls.append(("fuse", k, c)) or m)
+    _, result = closer.on_keyframe(m, 1, True, seq=12)
+    assert not result.closed and closer.last_loop_kf < 0
+    _, result = closer.on_keyframe(m, 1, True, seq=13)
+    assert result == tlc.LoopResult(True, 0, 33, 61)
+    assert calls == [("detect", 1, 12), ("sim3", 1, 0, True),
+                     ("detect", 1, 13), ("sim3", 1, 0, True),
+                     ("correct", 1, 0), ("fuse", 1, 0)]
+    assert (closer.n_candidates, closer.n_closed, closer.last_loop_kf) == \
+        (2, 1, 13)
+    assert bool(closer.db.valid[1])
 
 
 def test_on_keyframe_adds_every_keyframe(monkeypatch):

@@ -3,8 +3,8 @@ synthetic world, and the System's device contract.
 
 Both Systems run with their keyframe hook, so every keyframe goes through
 loop detection (vocabulary transform and keyframe database). The JAX
-System's ``tracker.relocalizer`` is set to None (relocalization is not
-ported yet). Tolerance: no LOST frame in either, and the port's ATE within
+System's ``tracker.relocalizer`` is set to None (no frame is LOST here).
+Tolerance: no LOST frame in either, and the port's ATE within
 max(1 mm, 20%) of the JAX ATE."""
 import dataclasses
 
@@ -196,6 +196,7 @@ def test_unported_options_raise(change):
     else:
         cfg = cfg.replace(tracking=dataclasses.replace(
             cfg.tracking, pipeline_depth=1, adaptive_pipeline=True))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match="item 20" if change == "global_ba" else None):
         System(cfg, device="cpu")
 
