@@ -55,13 +55,24 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      world (a closed circuit, ``ORBIT_FRAMES`` frames, a keyframe at
      least every 5 frames) at 640x480 with the bench capacities, through
      System.track_rgbd as that test runs it, once with loop closing on
-     and once off (chunked, the JAX package loses this orbit with a
-     chunk in flight, and without one a loop's effect on the ATE is
-     inside the runs' spread: PERF.md, section 6): at least one loop closed,
-     no LOST frame, the unaligned ATE under 0.15 m and under 0.75x the
+     and once off (the chunked form is phase 8b: with a chunk in flight
+     the JAX package loses this orbit at frame 16, and without one a
+     loop's effect on the ATE is inside the runs' spread: PERF.md,
+     section 6): at least one loop closed, no LOST frame, the unaligned ATE under 0.15 m and under 0.75x the
      run without closing; every K2 call of the first closing keyframe's
      verification, correction and fuse held bit-equal with its plain
      version and timed, and its host time split;
+  8b. the chunked form of the loop closure: the orbit at
+     ``ORBIT_CHUNK_FRAMES`` frames through System.track_chunk at C = 6,
+     each chunk finalized before the next is dispatched, up to the chunk
+     that closes the first loop, with torch's deterministic algorithms
+     (the card's scatter-adds otherwise sum in a run-dependent order):
+     the closure at the CPU's keyframe and
+     candidate (``ORBIT_CHUNK_CLOSURE``), no LOST frame, the unaligned
+     ATE under 0.15 m and within max(1 mm, 20%) of the CPU's, the frames
+     of the chunk still in flight at the correction exported with their
+     keyframes' corrected poses, and K2 held on the closing keyframe's
+     calls;
   9. relocalization, its drift correction and the ``mask=`` path at
      640x480: a kidnap per frame (20 frames, two flat frames with zero
      depth that go LOST, frame 5 again, relocalized within 5 cm) with K1
@@ -77,7 +88,7 @@ between CUDA events, slam_dynamic_tpu_torch/kernel_bench.py), each beside
 the least time the card could take for the same work; K2's row takes
 its times from phase 6's inputs. It then prints the kernel table as one
 JSON line (``launches`` is phase 5's count, the main path's;
-``launches_per_phase`` adds phases 3, 6, 7, 8 and 9) and, last, the
+``launches_per_phase`` adds phases 3, 6, 7, 8, 8b and 9) and, last, the
 result line. Any failed check raises, and a hang ends in a traceback and
 a nonzero exit after 1100 s.
 """
@@ -98,6 +109,14 @@ CHUNK_FRAMES = 120
 DYN_FRAMES = 30
 OBJECT_LEAVES = 50      # the bench world's object is in view before this
 ORBIT_FRAMES = 100      # tests/test_e2e_loop_reloc.py's circuit
+ORBIT_CHUNK_FRAMES = 200
+# The chunked orbit's first loop closure (C = 6, none in flight) on the
+# CPU, in both packages: keyframe seq 21 against slot 18
+# (tests/jax_loop_reference.py --frames 200 --chunk 6; the port:
+# python -m slam_dynamic_tpu_torch.orbit_trace run --device cpu
+# --until-closure), and the port's unaligned ATE there, in metres.
+ORBIT_CHUNK_CLOSURE = (21, 18)
+ORBIT_CHUNK_CPU_ATE = 0.0306262
 KIDNAP_FRAMES = 20
 MASK_FRAMES = 20
 
@@ -238,7 +257,9 @@ def phase_system(gm, hm, kb):
 
     world = bench_world(N_FRAMES, SEED)
     seq, cfg = world[0], world[3]
+    t_make = time.perf_counter()
     system = System(cfg)                   # device defaults to cuda
+    make_ms = (time.perf_counter() - t_make) * 1e3
     gm.launches = 0
     hm.launches = 0
     t_run = time.perf_counter()
@@ -255,6 +276,8 @@ def phase_system(gm, hm, kb):
         f"{N_FRAMES / wall:.2f} fps, p50 {np.median(times) * 1e3:.2f} ms, "
         f"first frame {times[0] * 1e3:.1f} ms, keyframes {n_kf}, "
         f"not-OK frames {n_lost}, ATE {ate_mm:.3f} mm, launches {launches}")
+    log(f"  the process's first System construction {make_ms:.1f} ms (the "
+        f"loop-closing warm-up included)")
     log("  " + system.vocabulary_line())
     if min(launches.values()) <= 0 or n_lost or ate_mm >= 30.0 or n_kf < 3:
         raise AssertionError("System phase failed its checks")
@@ -498,10 +521,15 @@ def _launches(gm, hm):
     return {"gated_match": gm.launches, "hamming_matrix": hm.launches}
 
 
-def run_orbit(kb, loop_on: bool, k2_calls: list):
-    """The orbit world through track_rgbd, frame by frame. With loop
-    closing on, the K2 calls of the first keyframe that closes a loop are
-    kept in ``k2_calls``."""
+def run_orbit(kb, loop_on: bool, k2_calls: list, frames: int = ORBIT_FRAMES,
+              chunk: int = 1):
+    """The orbit world through track_rgbd, frame by frame, or (``chunk``
+    > 1) through track_chunk after the first OK frame, each chunk
+    finalized before the next is dispatched, up to the chunk that closes
+    the first loop. With loop closing on, the K2 calls of the first
+    keyframe that closes a loop are kept in ``k2_calls``, and the
+    keyframe poses and the frames in flight just before its loop closing
+    in ``in_flight``."""
     import dataclasses
     import numpy as np
     import torch
@@ -509,20 +537,24 @@ def run_orbit(kb, loop_on: bool, k2_calls: list):
     from slam_dynamic_tpu_torch.io.evo import ate_rmse
     from slam_dynamic_tpu_torch.system import System
 
-    seq, gray8, depth16, cfg = bench_world(ORBIT_FRAMES, SEED,
-                                           trajectory="orbit")
+    seq, gray8, depth16, cfg = bench_world(frames, SEED, trajectory="orbit")
     cfg = cfg.replace(
-        tracking=dataclasses.replace(cfg.tracking, max_frames_between_kf=5),
+        tracking=dataclasses.replace(cfg.tracking, max_frames_between_kf=5,
+                                     pipeline_depth=0),
         loop=dataclasses.replace(cfg.loop, enabled=loop_on))
     from slam_dynamic_tpu_torch.backend.loop_closing import LoopCloser
     system = System(cfg)
-    closed, spans = [], []
+    closed, spans, in_flight = [], [], {}
     orig = system._on_keyframe
     parts = [(LoopCloser, n) for n in ("_detect", "_compute_sim3", "_correct",
                                        "_search_and_fuse")]
 
     def on_keyframe(k):
         calls, kf_spans = [], {}
+        if not k2_calls:         # until the first closure
+            m = system.tracker.map
+            before = (m.kf_R.cpu().numpy(), m.kf_t.cpu().numpy())
+            pending = [fr for fr, _, _ in system.tracker._pending]
         with kb.recording_k2(calls, every=True), \
                 host_spans(kf_spans, *parts):
             t0 = time.perf_counter()
@@ -536,10 +568,21 @@ def run_orbit(kb, loop_on: bool, k2_calls: list):
             spans.append(kf_spans)
             if not k2_calls:
                 k2_calls.extend(calls)
+                in_flight.update(kf_pose=before, frames=pending)
     system.tracker.on_keyframe = on_keyframe
+    ts = [float(t) for t in seq.timestamps]
+    stats, i = [], 0
     t0 = time.perf_counter()
-    stats = [system.track_rgbd(gray8[i], depth16[i], float(seq.timestamps[i]))
-             for i in range(ORBIT_FRAMES)]
+    while i < frames and not (chunk > 1 and closed):
+        if chunk == 1 or system.tracker.state != "OK" or i + chunk > frames:
+            stats.append(system.track_rgbd(gray8[i], depth16[i], ts[i]))
+            i += 1
+        else:
+            stats += system.track_chunk(gray8[i:i + chunk],
+                                        depth16[i:i + chunk],
+                                        ts[i:i + chunk])
+            i += chunk
+    stats += system.tracker.flush()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     est = np.stack([-R.T @ t for _, R, t in system.trajectory])
@@ -548,9 +591,38 @@ def run_orbit(kb, loop_on: bool, k2_calls: list):
     est_w = (seq.R_wc[0] @ est.T).T + seq.t_wc[0]
     return dict(closed=closed, frames=len(est), wall=wall, spans=spans,
                 lost=sum(s.state == "LOST" for s in stats),
-                keyframes=system.tracker.kf_seq,
+                keyframes=system.tracker.kf_seq, in_flight=in_flight,
+                system=system,
                 ate=ate_rmse(est_w, seq.t_wc[:len(est)], align=False),
                 fail=system.loop._last_sim3_fail if system.loop else "")
+
+
+def check_in_flight_corrected(system, in_flight) -> int:
+    """The frames in flight when the first loop was corrected, finalized
+    afterwards: each exported pose is its tracked pose relative to its
+    reference keyframe at dispatch, composed with that keyframe's
+    corrected pose, and the correction moved those keyframes
+    (tests/torch_port_util.py:check_in_flight_corrected on the card).
+    Returns the number of such frames."""
+    import numpy as np
+    t0 = in_flight["kf_pose"][1]
+    m = system.tracker.map
+    kf_R, kf_t = m.kf_R.cpu().numpy(), m.kf_t.cpu().numpy()
+    poses = {t: (R, tt) for t, R, tt in system.trajectory}
+    for fr in in_flight["frames"]:
+        k = fr.ref_kf
+        R_rel = fr.np_R @ fr.np_Rk.T
+        t_rel = fr.np_t - R_rel @ fr.np_tk
+        R, t = poses[fr.timestamp]
+        moved = float(np.linalg.norm(kf_t[k] - t0[k]))
+        if not (np.allclose(R, R_rel @ kf_R[k], atol=1e-5)
+                and np.allclose(t, R_rel @ kf_t[k] + t_rel, atol=1e-5)
+                and moved > 1e-3
+                and np.linalg.norm(t - fr.np_t) > 0.5 * moved):
+            raise AssertionError(f"frame {fr.timestamp} in flight at the "
+                                 "correction did not take its keyframe's "
+                                 "corrected pose")
+    return len(in_flight["frames"])
 
 
 def phase_loop_closure(gm, hm, kb, k2_err):
@@ -578,6 +650,14 @@ def phase_loop_closure(gm, hm, kb, k2_err):
     if not (on["ate"] < 0.15 and on["ate"] < 0.75 * off["ate"]):
         raise AssertionError(f"orbit: ATE {on['ate']:.4f} m with closing, "
                              f"{off['ate']:.4f} m without")
+    return launches, check_k2_on_closure(hm, kb, k2_calls, k2_err)
+
+
+def check_k2_on_closure(hm, kb, k2_calls, k2_err):
+    """K2 held bit-equal with its plain version on the K2 calls of a
+    closing keyframe, and timed there."""
+    import numpy as np
+    import torch
     times = []
     for a, b in k2_calls:
         got, ref = hm.hamming_matrix(a, b), hm.hamming_matrix_plain(a, b)
@@ -597,7 +677,48 @@ def phase_loop_closure(gm, hm, kb, k2_err):
         f"call kernel {ms_k:.6f} ms, plain {ms_p:.4f} ms, torch._int_mm "
         f"{ms_l:.6f} ms, bound {b_ms:.5f} ms ({times[0][4]}, "
         f"{b_ms / ms_k:.1%} of it reached)")
-    return launches, k2_err
+    return k2_err
+
+
+def phase_loop_closure_chunked(gm, hm, kb, k2_err):
+    """Phase 8b: the chunked orbit on the card up to its first closure,
+    held to the CPU's: the same keyframe and candidate, the frames in
+    flight at the correction moved with their keyframes, and K2 on the
+    closing keyframe's inputs."""
+    import torch
+    k2_calls = []
+    # the card's scatter-adds sum in an order that changes from run to
+    # run, and runs of this orbit part within 10 frames; with the
+    # deterministic algorithms every run is the same (PERF.md, section 6)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    _zero_launches(gm, hm)
+    try:
+        r = run_orbit(kb, True, k2_calls, ORBIT_CHUNK_FRAMES, CHUNK)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = _launches(gm, hm)
+    n_flight = check_in_flight_corrected(r["system"], r["in_flight"]) \
+        if r["in_flight"] else 0
+    closure = tuple(r["closed"][0][1:3]) if r["closed"] else None
+    log(f"phase 8b orbit 640x480 x {ORBIT_CHUNK_FRAMES} frames, "
+        f"track_chunk C = {CHUNK}, each chunk finalized before the next, "
+        f"to the first closure: {r['frames']} frames, "
+        f"{r['frames'] / r['wall']:.2f} fps, loop closed (slot, seq, "
+        f"candidate, inliers, total) {r['closed']}, {n_flight} frame(s) in "
+        f"flight at the correction took their keyframes' corrected poses, "
+        f"LOST frames {r['lost']}, unaligned ATE {r['ate'] * 1e3:.3f} mm "
+        f"(the CPU {ORBIT_CHUNK_CPU_ATE * 1e3:.3f} mm), launches {launches}")
+    for (k, *_), sp in zip(r["closed"], r["spans"]):
+        log(f"  keyframe {k}'s loop closing, host time: {_spans_line(sp)}")
+    if closure != ORBIT_CHUNK_CLOSURE or r["lost"]:
+        raise AssertionError(f"chunked orbit: closed {r['closed']} (the "
+                             f"CPU: seq, candidate {ORBIT_CHUNK_CLOSURE}), "
+                             f"LOST {r['lost']}, last Sim3 gate {r['fail']}")
+    ref = ORBIT_CHUNK_CPU_ATE
+    if not (r["ate"] < 0.15 and abs(r["ate"] - ref) <= max(1e-3, 0.2 * ref)):
+        raise AssertionError(f"chunked orbit: ATE {r['ate']:.4f} m, the "
+                             f"CPU {ref:.4f} m")
+    return launches, check_k2_on_closure(hm, kb, k2_calls, k2_err)
 
 
 def _kidnap_frames(world, views):
@@ -790,6 +911,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    # cuBLAS's deterministic workspace, for phase 8b
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from slam_dynamic_tpu_torch import kernel_bench as kb
     from slam_dynamic_tpu_torch.ops import gated_match as gm
     from slam_dynamic_tpu_torch.ops import hamming as hm
@@ -823,6 +946,8 @@ def main():
     dyn_frame_launches = phase_dynamic_frame(gm, hm)
     loop_launches, k2_row["max_abs_err"] = phase_loop_closure(
         gm, hm, kb, k2_row["max_abs_err"])
+    loop_chunk_launches, k2_row["max_abs_err"] = phase_loop_closure_chunked(
+        gm, hm, kb, k2_row["max_abs_err"])
     reloc_launches, k1_row["max_abs_err"] = phase_relocalization(
         gm, hm, kb, k1_row["max_abs_err"])
     rows = [k1_row, k2_row]
@@ -834,6 +959,7 @@ def main():
             "track_chunk_dynamic": dyn_launches[r["name"]],
             "track_rgbd_dynamic": dyn_frame_launches[r["name"]],
             "loop_closure": loop_launches[r["name"]],
+            "loop_closure_chunked": loop_chunk_launches[r["name"]],
             "relocalization": reloc_launches[r["name"]]}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

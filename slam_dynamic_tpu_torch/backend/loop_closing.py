@@ -204,6 +204,52 @@ def _scalar(v, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return torch.tensor(v, dtype=dtype, device=like.device)
 
 
+def warm_up(cfg: SystemConfig, cam: Intrinsics):
+    """Run the numerics of loop closing and relocalization once on
+    synthetic inputs at the configured sizes, on the camera's device:
+    the Sim3 RANSAC and optimization (both scale modes used), the PnP
+    RANSAC and one pose-graph step over ``max_keyframes`` vertices and
+    ``max_pose_graph_edges`` edges. Their first call in a process loads
+    libraries and kernels and builds the forward-mode Jacobians' op
+    decompositions, seconds on the card; the System runs this at
+    construction so that the first loop or relocalization does not stall
+    tracking. Kernels K1 and K2 are not launched; nothing is kept."""
+    from ..ops.pnp import ransac_pnp
+    dev = cam.fx.device
+    n = cfg.capacity.max_keypoints
+    g = torch.Generator().manual_seed(0)
+    x1 = (torch.rand(n, 3, generator=g) - 0.5) * torch.tensor([2.0, 2.0, 1.0])
+    x1 = (x1 + torch.tensor([0.0, 0.0, 2.5])).to(dev)
+    x2 = x1 + torch.tensor([0.02, -0.01, 0.03], device=dev)
+    uv1, uv2 = project(cam, x1), project(cam, x2)
+    ok = torch.ones(n, dtype=torch.bool, device=dev)
+    inv = torch.ones(n, device=dev)
+    seed = torch.tensor(0, dtype=torch.int64, device=dev)
+    for fix_scale in sorted({cfg.loop.fix_scale, True}):
+        fit = ransac_sim3(cam, cam, x1, x2, uv1, uv2, ok, seed=seed,
+                          fix_scale=fix_scale)
+        optimize_sim3(cam, cam, fit.s, fit.R, fit.t, x1, x2, uv1, uv2, inv,
+                      inv, ok, fix_scale=fix_scale)
+    ransac_pnp(cam, x1, uv2, ok, seed=seed)
+    K, E = cfg.capacity.max_keyframes, cfg.capacity.max_pose_graph_edges
+    eye = torch.eye(3, device=dev)
+    e_ij = torch.zeros(E, dtype=torch.int32, device=dev)
+    e_ij[0] = 1
+    optimize_pose_graph(PoseGraphProblem(
+        s=torch.ones(K, device=dev), R=eye.expand(K, 3, 3).clone(),
+        t=torch.zeros(K, 3, device=dev),
+        fixed=torch.arange(K, device=dev) == 0,
+        valid=torch.arange(K, device=dev) < 2,
+        e_i=torch.zeros(E, dtype=torch.int32, device=dev), e_j=e_ij,
+        e_s=torch.ones(E, device=dev), e_R=eye.expand(E, 3, 3).clone(),
+        e_t=torch.full((E, 3), 0.01, device=dev),
+        e_valid=torch.arange(E, device=dev) == 0,
+        e_weight=torch.ones(E, device=dev)), iters=1,
+        fix_scale=cfg.loop.fix_scale)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 class LoopCloser:
     """Host orchestration of loop closing; the numerics are torch ops on
     the map's device."""

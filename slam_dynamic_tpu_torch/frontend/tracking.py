@@ -571,9 +571,7 @@ class Tracker:
         ``max_lost_frames`` frames resets the map; a near-featureless
         frame never resets."""
         if self.relocalizer is not None:
-            res = self.relocalizer(frame)
-            ok, R, t, obs = res[:4]
-            cand = int(res[4]) if len(res) > 4 else -1
+            ok, R, t, obs, cand = self.relocalizer(frame)
             if ok:
                 frame.R, frame.t = R, t
                 frame.obs_lm = obs

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .backend import relocalization
+from .backend import loop_closing, relocalization
 from .backend.loop_closing import LoopCloser, LoopResult
 from .config import SystemConfig
 from .frontend.boxtrack import BoxTrackerState, track_boxes
@@ -93,6 +93,10 @@ class System:
         self.tracker.on_keyframe = self._on_keyframe
         self.tracker.relocalizer = self._relocalize
         self.tracker.on_reloc = self._on_reloc
+        if self.device.type == "cuda":
+            # the first loop closing or relocalization of a process would
+            # otherwise stall tracking for seconds (PERF.md, section 5)
+            loop_closing.warm_up(cfg, self.cam)
 
     def _ensure_voc(self):
         if self.voc is None:

@@ -4,8 +4,7 @@ features, 2048 keypoint slots, the capacities of ``bench.py:250-261``),
 both as shipped with loop detection on, run as ``bench.py``'s chunked
 mode runs them: one frame to initialize, then chunks of C = 6 frames with
 one chunk in flight and a keyframe at least every 3 frames, far enough
-that the loop detector scores keyframes 10 and 11. The relocalizer stays
-off in the JAX System (no frame is LOST here).
+that the loop detector scores keyframes 10 and 11.
 
 Tolerances: the same frames, states and keyframe decisions, the same
 ``_detect`` results and streaks, keyframe-database rows equal where the
@@ -42,7 +41,6 @@ def runs():
     tcfg = tcfg.replace(tracking=dataclasses.replace(
         tcfg.tracking, max_frames_between_kf=3, pipeline_depth=1))
     js = JSystem(_jax_config(tcfg))
-    js.tracker.relocalizer = None
     ts = System(tcfg, device="cpu")
     out = run_pair(js, ts, (None, seq, gray8, depth16), N_FRAMES)
     out["seq"] = seq

@@ -3,8 +3,7 @@ against the JAX System's, as shipped (keyframe hook on, so every keyframe
 is transformed, added to the keyframe database and, from the 10th on,
 scored for a loop), on the 320x240 world at C = 6 with one chunk in
 flight (``bench.py``'s default ``pipeline_depth=1``) and a keyframe at
-least every 3 frames, past the 12th keyframe. The relocalizer stays off
-in the JAX System (no frame is LOST here).
+least every 3 frames, past the 12th keyframe.
 
 Tolerances: the same frames, states and keyframe decisions and the same
 ``_detect`` results and streaks on every keyframe; keyframe-database
@@ -37,7 +36,6 @@ def _pair(world, n_frames, **tracking):
     jcfg, tcfg = configs(world[0])
     tracking = dict(max_frames_between_kf=3, **tracking)
     js = JSystem(with_tracking(jcfg, **tracking))
-    js.tracker.relocalizer = None
     ts = System(with_tracking(tcfg, **tracking), device="cpu")
     return run_pair(js, ts, world, n_frames)
 

@@ -2,8 +2,7 @@
 System.track_chunk(..., detections=) against the JAX System's, on the
 320x240 moving-object world of ``tests/test_e2e_dynamic.py`` (31 frames,
 C = 6, one chunk in flight as ``bench.py --dynamic`` runs it, the H/F
-classification on every 2nd chunk frame). The relocalizer stays off in
-the JAX System (no frame is LOST here).
+classification on every 2nd chunk frame).
 
 The two packages draw their RANSAC samples differently (JAX's threefry
 against the port's hash, seeded from the pose on the device), so the
@@ -40,7 +39,6 @@ def runs(world):
     jcfg, tcfg = (with_tracking(c, pipeline_depth=1)
                   for c in dynamic_configs(world[0]))
     js = JSystem(jcfg)
-    js.tracker.relocalizer = None
     shapes = []
     orig = ttracking.fused_track_chunk_dyn
 

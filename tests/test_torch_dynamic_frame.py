@@ -2,8 +2,7 @@
 System.track_rgbd(..., detections=) against the JAX System's, on the
 320x240 falsely boxed world of ``tests/test_e2e_dynamic.py`` (a static
 object in a detector box, 31 frames), classifying every 2nd frame
-(``classify_every = 2``), so both forms of the dynamic step run. The
-relocalizer stays off in the JAX System (no frame is LOST here). Also:
+(``classify_every = 2``), so both forms of the dynamic step run. Also:
 the library's default config constructs, the parts not ported yet raise
 with their ROADMAP item, and the ``mask=`` path runs.
 
@@ -37,7 +36,6 @@ def world():
 def runs(world):
     jcfg, tcfg = dynamic_configs(world[0], classify_every=2)
     js = JSystem(jcfg)
-    js.tracker.relocalizer = None
     forms = []
     orig = ttracking.fused_track_step_dyn
 

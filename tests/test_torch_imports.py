@@ -48,7 +48,8 @@ def test_importing_the_port_loads_no_jax():
             "slam_dynamic_tpu_torch.optim.pose_graph, "
             "slam_dynamic_tpu_torch.utils.sim3, "
             "slam_dynamic_tpu_torch.backend.relocalization, "
-            "slam_dynamic_tpu_torch.backend.loop_closing; "
+            "slam_dynamic_tpu_torch.backend.loop_closing, "
+            "slam_dynamic_tpu_torch.orbit_trace; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

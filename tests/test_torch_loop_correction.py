@@ -471,3 +471,50 @@ def test_orbit_closes_first_loop_like_jax():
     in both packages (torch_port_util.check_orbit_closure; the chunked
     form is tests/test_torch_orbit_chunk.py)."""
     check_orbit_closure(chunk=1)
+
+
+def test_warm_up_runs_each_solver_at_the_configured_sizes(monkeypatch):
+    """``loop_closing.warm_up`` (the System's construction on the card)
+    runs the Sim3 RANSAC and optimization in both scale modes, the PnP
+    RANSAC over ``max_keypoints`` pairs, and one pose-graph step over
+    ``max_keyframes`` vertices and ``max_pose_graph_edges`` edges, with
+    finite results; a System on the CPU does not run it."""
+    from slam_dynamic_tpu_torch.ops import pnp as tpnp
+    from slam_dynamic_tpu_torch.system import System
+    tcfg = TC.SystemConfig(
+        camera=TC.CameraConfig(fx=260.0, fy=260.0, cx=159.5, cy=119.5,
+                               bf=26.0, width=320, height=240),
+        capacity=TC.CapacityConfig(max_keyframes=16, max_keypoints=256,
+                                   max_pose_graph_edges=64),
+        sensor="rgbd")
+    calls = []
+
+    def record(name, fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            calls.append((name, a, kw, out))
+            return out
+        return wrapped
+    monkeypatch.setattr(tlc, "ransac_sim3", record("ransac_sim3",
+                                                   tlc.ransac_sim3))
+    monkeypatch.setattr(tlc, "optimize_sim3", record("optimize_sim3",
+                                                     tlc.optimize_sim3))
+    monkeypatch.setattr(tlc, "optimize_pose_graph", record(
+        "pose_graph", tlc.optimize_pose_graph))
+    monkeypatch.setattr(tpnp, "ransac_pnp", record("ransac_pnp",
+                                                   tpnp.ransac_pnp))
+    tlc.warm_up(tcfg, tintr(tcfg, torch.device("cpu")))
+    names = [c[0] for c in calls]
+    assert names == ["ransac_sim3", "optimize_sim3", "ransac_pnp",
+                     "pose_graph"]
+    assert [c[2]["fix_scale"] for c in calls[:2]] == [True, True]
+    for name, a, kw, out in calls[:3]:
+        assert a[-1].shape == (256,), name            # the valid mask
+        assert int(out.n_inliers) > 200, name     # the synthetic pairs fit
+    problem = calls[3][1][0]
+    assert problem.s.shape == (16,) and problem.e_i.shape == (64,)
+    assert all(torch.isfinite(x).all() for x in calls[3][3])
+    # a System on the CPU skips it
+    calls.clear()
+    System(tcfg, device="cpu")
+    assert not calls

@@ -344,39 +344,64 @@ def test_kidnap_relocalizes_like_jax():
     assert et < 0.05 and abs(et - ej) <= max(1e-3, 0.2 * ej), (et, ej)
 
 
-def test_chunked_kidnap_recovers():
-    """The kidnap through track_chunk (C = 3, one chunk in flight): the
-    chunk holding the flat frames goes LOST when it is finalized, the
-    chunk dispatched after it is dropped, and the next chunk takes the
-    per-frame route: frame 5's view relocalizes, 6 and 7 track."""
-    _, seq, gray8, depth16 = world = small_world(n_frames=24)
-    tcfg = with_tracking(configs(world[0])[1], max_frames_between_kf=5,
-                         pipeline_depth=1)
-    system = System(tcfg, device="cpu")
+def _chunked_kidnap(system, world):
+    """The kidnap through track_chunk (C = 3, one chunk in flight): 18
+    frames in chunks, a chunk of frame 19 and two flat frames, a chunk of
+    frames 5-7 (timestamps 2.0...) and the same again (3.0...), then the
+    frames in flight: the states each call returned, the tracker's state
+    and in-flight count after the first 5-7 chunk, the trajectory's
+    timestamps and frame 5's camera centre at 3.0."""
+    _, seq, gray8, depth16 = world
     ts = [float(t) for t in seq.timestamps]
-    assert system.track_rgbd(gray8[0], depth16[0], ts[0]).state == "OK"
-    states = []
-    for i in range(1, 19, 3):
-        states += [s.state for s in system.track_chunk(
-            gray8[i:i + 3], depth16[i:i + 3], ts[i:i + 3])]
     flat = np.full_like(gray8[0], 120)
     zdep = np.zeros_like(depth16[0])
-    states += [s.state for s in system.track_chunk(
-        [gray8[19], flat, flat], [depth16[19], zdep, zdep],
-        [ts[19], 1.0, 1.03])]
-    assert states == ["OK"] * 18
-    dropped = system.track_chunk(gray8[5:8], depth16[5:8], [2.0, 2.04, 2.08])
-    # frame 19, then the first flat frame; the second and this chunk drop
-    assert [s.state for s in dropped] == ["OK", "LOST"]
-    assert system.tracker.state == "LOST" and not system.tracker._pending
-    again = system.track_chunk(gray8[5:8], depth16[5:8], [3.0, 3.04, 3.08])
-    again += system.tracker.flush()
-    assert len(again) >= 3 and all(s.state == "OK" for s in again)
-    poses = {t: (R, tt) for t, R, tt in system.trajectory}
+    calls = [[system.track_rgbd(gray8[0], depth16[0], ts[0])]]
+    calls += [system.track_chunk(gray8[i:i + 3], depth16[i:i + 3],
+                                 ts[i:i + 3]) for i in range(1, 19, 3)]
+    calls.append(system.track_chunk([gray8[19], flat, flat],
+                                    [depth16[19], zdep, zdep],
+                                    [ts[19], 1.0, 1.03]))
+    calls.append(system.track_chunk(gray8[5:8], depth16[5:8],
+                                    [2.0, 2.04, 2.08]))
+    after_loss = (system.tracker.state, len(system.tracker._pending))
+    calls.append(system.track_chunk(gray8[5:8], depth16[5:8],
+                                    [3.0, 3.04, 3.08]))
+    left = system.tracker.flush()
+    calls.append(left if isinstance(left, list) else
+                 [left] if left is not None else [])
+    states = [[s.state for s in c] for c in calls]
+    poses = {t: (np.asarray(R), np.asarray(tt))
+             for t, R, tt in system.trajectory}
     R, t = poses[3.0]
-    assert np.linalg.norm(-R.T @ t - seq.t_wc[5]) < 0.05
-    assert 2.0 not in poses                      # the dropped chunk
-    assert system.tracker.packet_reads <= system.tracker.dispatches
+    return states, after_loss, sorted(poses), -R.T @ t
+
+
+def test_chunked_kidnap_recovers_like_jax():
+    """The chunk holding the flat frames goes LOST when it is finalized,
+    the chunk dispatched after it is dropped, and the next chunk takes the
+    per-frame route: frame 5's view relocalizes, 6 and 7 track. Against
+    the JAX System with the same configuration (C = 3, one chunk in
+    flight): the same states from every call, the same frames dropped
+    from the trajectory, and frame 5's centre within max(1 mm, 20%) of
+    JAX's error."""
+    world = small_world(n_frames=24)
+    jcfg, tcfg = (with_tracking(c, max_frames_between_kf=5,
+                                pipeline_depth=1)
+                  for c in configs(world[0]))
+    tsys = System(tcfg, device="cpu")
+    (sj, lj, tj, cj), (st, lt, tt, ct) = (
+        _chunked_kidnap(JSystem(jcfg), world), _chunked_kidnap(tsys, world))
+    assert st == sj, (st, sj)
+    assert sum(st[:8], []) == ["OK"] * 19
+    # frame 19, then the first flat frame; the second and this chunk drop
+    assert st[8] == ["OK", "LOST"]
+    assert lt == lj == ("LOST", 0)
+    assert tt == tj and 2.0 not in tt and 3.0 in tt
+    assert all(s == "OK" for s in st[9] + st[10]) and len(st[9] + st[10]) >= 3
+    gt = world[1].t_wc[5]
+    ej, et = np.linalg.norm(cj - gt), np.linalg.norm(ct - gt)
+    assert et < 0.05 and abs(et - ej) <= max(1e-3, 0.2 * ej), (et, ej)
+    assert tsys.tracker.packet_reads <= tsys.tracker.dispatches
 
 
 def test_track_rgbd_mask_matches_jax():

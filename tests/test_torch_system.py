@@ -2,8 +2,7 @@
 synthetic world, and the System's device contract.
 
 Both Systems run with their keyframe hook, so every keyframe goes through
-loop detection (vocabulary transform and keyframe database). The JAX
-System's ``tracker.relocalizer`` is set to None (no frame is LOST here).
+loop detection (vocabulary transform and keyframe database).
 Tolerance: no LOST frame in either, and the port's ATE within
 max(1 mm, 20%) of the JAX ATE."""
 import dataclasses
@@ -40,7 +39,6 @@ def _systems(**tracking):
                                                              **tracking))
                       for c in (jcfg, tcfg))
     js = JSystem(jcfg)
-    js.tracker.relocalizer = None
     return (seq, gray8, depth16), js, System(tcfg, device="cpu")
 
 

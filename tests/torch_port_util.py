@@ -260,19 +260,29 @@ def first_status(run, value):
 # --- the orbit world to its first loop closure
 # (tests/test_torch_loop_correction.py, tests/test_torch_orbit_chunk.py) ---
 
+def _np(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def orbit_until_closure(system, seq, gray8, depth16, n, chunk=1):
     """Track until the first keyframe that closes a loop, per frame
     (``chunk`` 1) or in chunks after the first OK frame, then the frames
     in flight: [(slot, seq, candidate)] of the closure, the frames'
-    states, and the unaligned world-frame trajectory."""
-    closed = []
+    states, the unaligned world-frame trajectory, and the keyframe poses
+    [K, 3, 3], [K, 3] just before the closing keyframe's loop closing
+    with the frames still in flight then (finalized by now)."""
+    closed, at_closure = [], {}
     orig = system._on_keyframe
 
     def hook(k):
+        m = system.tracker.map
+        before = (_np(m.kf_R), _np(m.kf_t))
+        pending = [fr for fr, _, _ in system.tracker._pending]
         orig(k)
         if system.last_loop is not None and system.last_loop.closed:
             closed.append((k, system.tracker.kf_seq,
                            system.last_loop.matched_kf))
+            at_closure.update(kf_pose=before, in_flight=pending)
     system.tracker.on_keyframe = hook
     ts = [float(t) for t in seq.timestamps]
     states, i = [], 0
@@ -288,7 +298,34 @@ def orbit_until_closure(system, seq, gray8, depth16, n, chunk=1):
     while system.tracker._pending:
         states.append(system.tracker._finalize_one().state)
     est = np.stack([-R.T @ t for _, R, t in system.trajectory])
-    return closed, states, (seq.R_wc[0] @ est.T).T + seq.t_wc[0]
+    return (closed, states, (seq.R_wc[0] @ est.T).T + seq.t_wc[0],
+            at_closure)
+
+
+def check_in_flight_corrected(system, at_closure):
+    """The frames in flight when the loop was corrected were finalized
+    afterwards: each exported pose is its tracked pose relative to its
+    reference keyframe (at dispatch), composed with that keyframe's
+    corrected pose; the correction moved those keyframes. Returns the
+    number of such frames."""
+    t0 = at_closure["kf_pose"][1]
+    m = system.tracker.map
+    kf_R, kf_t = _np(m.kf_R), _np(m.kf_t)
+    poses = {t: (np.asarray(R), np.asarray(tt))
+             for t, R, tt in system.trajectory}
+    for fr in at_closure["in_flight"]:
+        k = fr.ref_kf
+        R_rel = fr.np_R @ fr.np_Rk.T
+        t_rel = fr.np_t - R_rel @ fr.np_tk
+        R, t = poses[fr.timestamp]
+        np.testing.assert_allclose(R, R_rel @ kf_R[k], atol=1e-5)
+        np.testing.assert_allclose(t, R_rel @ kf_t[k] + t_rel, atol=1e-5)
+        # the correction moved the reference keyframe, and the frame with
+        # it
+        moved = np.linalg.norm(kf_t[k] - t0[k])
+        assert moved > 1e-3, (fr.timestamp, k, moved)
+        assert np.linalg.norm(t - fr.np_t) > 0.5 * moved
+    return len(at_closure["in_flight"])
 
 
 def check_orbit_closure(chunk):
@@ -299,7 +336,10 @@ def check_orbit_closure(chunk):
     loop closes at the same keyframe (slot and insertion count) against
     the same candidate in both packages, every frame OK, and the
     unaligned ATE up to there within max(1 mm, 20%) of JAX's and under
-    the JAX test's 0.15 m."""
+    the JAX test's 0.15 m. Chunked, the closing keyframe is not its
+    chunk's last, so the correction runs with frames in flight: as many
+    in both packages, each exported with its keyframe's corrected pose
+    (check_in_flight_corrected)."""
     from slam_dynamic_tpu.io.evo import ate_rmse as jate
     from slam_dynamic_tpu.system import System as JSystem
     from slam_dynamic_tpu_torch.io.evo import ate_rmse
@@ -311,11 +351,14 @@ def check_orbit_closure(chunk):
     depth16 = np.clip(seq.depth * 1000.0, 0, 65535).astype(np.uint16)
     jcfg, tcfg = (with_tracking(c, max_frames_between_kf=5)
                   for c in configs(seq.cfg))
-    cj, sj, ej = orbit_until_closure(JSystem(jcfg), seq, gray8, depth16, n,
-                                     chunk)
-    ct, st, et = orbit_until_closure(System(tcfg, device="cpu"), seq, gray8,
-                                     depth16, n, chunk)
+    js, tsys = JSystem(jcfg), System(tcfg, device="cpu")
+    cj, sj, ej, aj = orbit_until_closure(js, seq, gray8, depth16, n, chunk)
+    ct, st, et, at = orbit_until_closure(tsys, seq, gray8, depth16, n, chunk)
     assert ct == cj and len(ct) == 1, (ct, cj)
+    # chunked, the loop is corrected with frames of the chunk in flight
+    n_flight = [check_in_flight_corrected(s, a)
+                for s, a in ((js, aj), (tsys, at))]
+    assert n_flight[0] == n_flight[1] and (chunk == 1) == (n_flight[1] == 0)
     assert st == sj == ["OK"] * len(sj)
     ate_j = jate(ej, seq.t_wc[:len(ej)], align=False)
     ate_t = ate_rmse(et, seq.t_wc[:len(et)], align=False)
