@@ -21,8 +21,8 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
   3. System.track_rgbd on the synthetic 640x480 RGB-D world, 1000 ORB
      features, bench capacities, loop detection on: fps, p50 ms per
      frame, keyframes, LOST frames, ATE, and the launch counts of K1 and
-     K2 over that run, timed bare; a second, untimed run of the same
-     frames keeps the inputs of its K1 calls;
+     K2 over that run, which keeps a copy of the inputs of its K1 calls
+     (device-side copies of a few hundred kB a frame);
   4. K1 on those inputs: bit-equal with its plain version on every call,
      their shares of ok keypoints and landmarks, and the device time and
      bound per call that the kernel table reports;
@@ -47,7 +47,7 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      K2 is held bit-equal with its plain version on the three
      classifications of the first chunk with a reference frame and timed
      there, beside its plain version and the library call;
-  7. the per-frame dynamic path: 30 frames of that world through
+  7. the per-frame dynamic path: 20 frames of that world through
      System.track_rgbd(detections=) classifying every 2nd frame, so both
      forms of the dynamic step run: LOST frames, the forms dispatched,
      the launches and the box status;
@@ -81,16 +81,38 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      dropped and the next relocalizes; a drift injected into the last
      keyframe and its landmarks, corrected by the relocalization hook to
      under 0.35x; and 20 frames of the moving-object world through
-     track_rgbd(mask=, detections=) with no LOST frame.
+     track_rgbd(mask=, detections=) with no LOST frame;
+  10. stereo as ``python -m slam_dynamic_tpu_torch.bench --stereo`` runs
+     it (``bench.py --stereo``): the 640x480 stereo pair, two
+     extractions and the row-band matcher per frame, System.track_chunk
+     at C = 6 with one chunk in flight, 120 frames: fps, chunk p50 and
+     p90 ms, LOST frames (none), ATE (under 30 mm) beside the JAX
+     package's on the CPU, launches; K1 held bit-equal on the first warm
+     chunk's calls, and K2 on its six stereo matches (1000 x 1000, left
+     against right keypoints), timed there beside its plain version,
+     torch._int_mm and its bound;
+  10b. the stereo pair of the moving-object world through
+     System.track_stereo(detections=), 30 frames, classifying every 2nd
+     frame: LOST frames (none), ATE, the object confirmed dynamic, beside
+     the JAX package's frame of confirmation on the CPU; K1 and K2 held
+     bit-equal on every call of the first 6 frames (the per-frame stereo
+     matches among them);
+  11. System.track_mono on the 640x480 mono world (the bench world's
+     room, the camera moving 0.04 m a frame with a 0.5 m sway), 50
+     frames: the frame it initialized at (within the first 5), at least
+     90% of the frames from there OK, the Sim3-aligned ATE under 0.15 m,
+     beside the JAX package's on the CPU; K1 and K2 held bit-equal on
+     every call of the first 6 frames (the bootstrap's [2048, 2048]
+     matches and the first tracked frames).
 
 Kernel, plain and library times are device times (CUDA-graph replay
 between CUDA events, slam_dynamic_tpu_torch/kernel_bench.py), each beside
 the least time the card could take for the same work; K2's row takes
-its times from phase 6's inputs. It then prints the kernel table as one
-JSON line (``launches`` is phase 5's count, the main path's;
-``launches_per_phase`` adds phases 3, 6, 7, 8, 8b and 9) and, last, the
-result line. Any failed check raises, and a hang ends in a traceback and
-a nonzero exit after 1100 s.
+its times from phase 6's inputs. It then prints the wall time of each
+phase, the kernel table as one JSON line (``launches`` is phase 5's
+count, the main path's; ``launches_per_phase`` adds phases 3, 6, 7, 8,
+8b, 9, 10, 10b and 11) and, last, the result line. Any failed check
+raises, and a hang ends in a traceback and a nonzero exit after 1100 s.
 """
 import contextlib
 import faulthandler
@@ -103,10 +125,10 @@ import time
 faulthandler.dump_traceback_later(1100, exit=True)
 
 SEED = 0
-N_FRAMES = 60
+N_FRAMES = 45
 CHUNK = 6
 CHUNK_FRAMES = 120
-DYN_FRAMES = 30
+DYN_FRAMES = 20
 OBJECT_LEAVES = 50      # the bench world's object is in view before this
 ORBIT_FRAMES = 100      # tests/test_e2e_loop_reloc.py's circuit
 ORBIT_CHUNK_FRAMES = 200
@@ -119,10 +141,59 @@ ORBIT_CHUNK_CLOSURE = (21, 18)
 ORBIT_CHUNK_CPU_ATE = 0.0306262
 KIDNAP_FRAMES = 20
 MASK_FRAMES = 20
+STEREO_DYN_FRAMES = 30
+MONO_FRAMES = 50
+# phases 10b and 11 keep the inputs of every K1 and K2 call of their first
+# frames (the mono bootstrap's attempts and first tracked frames among
+# them) and hold each against its plain version
+RECORD_FRAMES = 6
+# The JAX package on the CPU on the same worlds: ``python bench.py
+# --stereo --cpu`` (phase 10's ATE, mm) and ``JAX_PLATFORMS=cpu
+# PYTHONPATH=. python tests/torch_port_util.py --world stereo-dynamic``
+# (phase 10b: ATE in mm, the first frame with the object confirmed
+# dynamic) and ``--world mono`` (phase 11: the frame it initialized at,
+# the Sim3-aligned ATE in mm); the port on the CPU with the JAX package's
+# bootstrap draws, ``--world mono --package port --jax-samples`` (mm).
+JAX_STEREO_CHUNK_ATE_MM = 27.55
+JAX_STEREO_DYN = (9.024, 9)
+JAX_MONO = (2, 23.016)
+JAX_MONO_PORT_CPU_MM = 22.962
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def _max_diff(a, b):
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+def hold_k1(gm, calls, what, err=0):
+    """Every recorded K1 call ``(args, lvl_min, lvl_max)`` bit-equal with
+    its plain version; returns ``err`` raised to the largest absolute
+    difference."""
+    import torch
+    for args, lo, hi in calls:
+        got = gm.gated_match(*args, lvl_min=lo, lvl_max=hi)
+        ref = gm.gated_match_plain(*args, lvl_min=lo, lvl_max=hi)
+        torch.cuda.synchronize()
+        err = max(err, *(_max_diff(k, p) for k, p in zip(got, ref)))
+        if not all(torch.equal(k, p) for k, p in zip(got, ref)):
+            raise AssertionError(f"K1 on {what}: kernel != plain (err {err})")
+    return err
+
+
+def hold_k2(hm, calls, what, err=0):
+    """Every recorded K2 input pair bit-equal with the plain version;
+    returns ``err`` raised to the largest absolute difference."""
+    import torch
+    for a, b in calls:
+        got, ref = hm.hamming_matrix(a, b), hm.hamming_matrix_plain(a, b)
+        torch.cuda.synchronize()
+        err = max(err, _max_diff(got, ref))
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K2 on {what}: kernel != plain (err {err})")
+    return err
 
 
 def phase_k1(dev, gm, kb, INVALID):
@@ -163,16 +234,7 @@ def phase_k1(dev, gm, kb, INVALID):
 
 def phase_k1_path(gm, kb, calls, max_err):
     """K1 on the inputs of the System run's own K1 calls."""
-    import torch
-    for args, lo, hi in calls:
-        got = gm.gated_match(*args, lvl_min=lo, lvl_max=hi)
-        ref = gm.gated_match_plain(*args, lvl_min=lo, lvl_max=hi)
-        torch.cuda.synchronize()
-        err = max(int((k - p).abs().max()) for k, p in zip(got, ref))
-        if not all(torch.equal(k, p) for k, p in zip(got, ref)):
-            raise AssertionError(f"K1 on the path's inputs: kernel != plain "
-                                 f"(err {err})")
-        max_err = max(max_err, err)
+    max_err = hold_k1(gm, calls, "the path's inputs", max_err)
     kp_ok, lm_ok = kb.ok_shares(calls)
     ms = kb.calls_ms(gm.gated_match, calls)
     plain_ms = kb.calls_ms(gm.gated_match_plain, calls)
@@ -262,8 +324,10 @@ def phase_system(gm, hm, kb):
     make_ms = (time.perf_counter() - t_make) * 1e3
     gm.launches = 0
     hm.launches = 0
+    calls = []
     t_run = time.perf_counter()
-    times, states, n_kf = track_frames(system, world, N_FRAMES)
+    with kb.recording_k1(calls):
+        times, states, n_kf = track_frames(system, world, N_FRAMES)
     wall = time.perf_counter() - t_run
     launches = {"gated_match": gm.launches, "hamming_matrix": hm.launches}
     traj = system.trajectory
@@ -281,10 +345,6 @@ def phase_system(gm, hm, kb):
     log("  " + system.vocabulary_line())
     if min(launches.values()) <= 0 or n_lost or ate_mm >= 30.0 or n_kf < 3:
         raise AssertionError("System phase failed its checks")
-    # the K1 inputs of the same frames, on a second, untimed System
-    calls = []
-    with kb.recording_k1(calls):
-        track_frames(System(cfg), world, N_FRAMES)
     if len(calls) != launches["gated_match"]:
         raise AssertionError(f"{len(calls)} K1 calls kept, "
                              f"{launches['gated_match']} launched")
@@ -294,7 +354,6 @@ def phase_system(gm, hm, kb):
 def phase_chunk(gm, hm, kb):
     """The main path as the port's bench runs it: 120 frames, C = 6."""
     import numpy as np
-    import torch
     from slam_dynamic_tpu_torch import bench
 
     calls = []
@@ -330,12 +389,7 @@ def phase_chunk(gm, hm, kb):
                              f"{tracker.dispatches} fused dispatches")
     if len(calls) != 3 * CHUNK:
         raise AssertionError(f"{len(calls)} K1 calls in the first chunk")
-    for args, lo, hi in calls:
-        got = gm.gated_match(*args, lvl_min=lo, lvl_max=hi)
-        ref = gm.gated_match_plain(*args, lvl_min=lo, lvl_max=hi)
-        torch.cuda.synchronize()
-        if not all(torch.equal(k, p) for k, p in zip(got, ref)):
-            raise AssertionError("K1 on the chunk's inputs: kernel != plain")
+    hold_k1(gm, calls, "the chunk's inputs")
     k1_ms = kb.calls_ms(gm.gated_match, calls)
     b_ms, b_by = kb.k1_calls_bound(calls)
     log(f"  K1 on the {len(calls)} calls of the first warm chunk: bit-equal "
@@ -358,7 +412,6 @@ def status_changes(history):
 def phase_dynamic_chunk(gm, hm, kb, k2_err):
     """The dynamic scene on the chunked path, as ``bench.py --dynamic``."""
     import numpy as np
-    import torch
     from slam_dynamic_tpu_torch import bench
 
     history, k2_calls, k2_after = [], [], []
@@ -413,15 +466,8 @@ def phase_dynamic_chunk(gm, hm, kb, k2_err):
     if not confirmed or max(confirmed[0]) >= OBJECT_LEAVES:
         raise AssertionError("the moving object was not confirmed dynamic "
                              f"before frame {OBJECT_LEAVES}")
-    times = []
-    for a, b in k2_calls:
-        got, ref = hm.hamming_matrix(a, b), hm.hamming_matrix_plain(a, b)
-        torch.cuda.synchronize()
-        k2_err = max(k2_err, int((got - ref).abs().max()))
-        if not torch.equal(got, ref):
-            raise AssertionError("K2 on the classification's inputs: kernel "
-                                 "!= plain")
-        times.append(k2_times(hm, kb, a, b))
+    k2_err = hold_k2(hm, k2_calls, "the classification's inputs", k2_err)
+    times = [k2_times(hm, kb, a, b) for a, b in k2_calls]
     ms_k, ms_p, ms_l, b_ms, b_by = (
         [float(np.mean([t[i] for t in times])) for i in range(4)]
         + [times[0][4]])
@@ -522,7 +568,7 @@ def _launches(gm, hm):
 
 
 def run_orbit(kb, loop_on: bool, k2_calls: list, frames: int = ORBIT_FRAMES,
-              chunk: int = 1):
+              chunk: int = 1, world=None):
     """The orbit world through track_rgbd, frame by frame, or (``chunk``
     > 1) through track_chunk after the first OK frame, each chunk
     finalized before the next is dispatched, up to the chunk that closes
@@ -537,7 +583,8 @@ def run_orbit(kb, loop_on: bool, k2_calls: list, frames: int = ORBIT_FRAMES,
     from slam_dynamic_tpu_torch.io.evo import ate_rmse
     from slam_dynamic_tpu_torch.system import System
 
-    seq, gray8, depth16, cfg = bench_world(frames, SEED, trajectory="orbit")
+    seq, gray8, depth16, cfg = world or bench_world(frames, SEED,
+                                                    trajectory="orbit")
     cfg = cfg.replace(
         tracking=dataclasses.replace(cfg.tracking, max_frames_between_kf=5,
                                      pipeline_depth=0),
@@ -627,13 +674,13 @@ def check_in_flight_corrected(system, in_flight) -> int:
 
 def phase_loop_closure(gm, hm, kb, k2_err):
     """Phase 8: the loop closed on the card, and K2 on its inputs."""
-    import numpy as np
-    import torch
+    from slam_dynamic_tpu_torch.io.bench_world import bench_world
+    world = bench_world(ORBIT_FRAMES, SEED, trajectory="orbit")
     k2_calls = []
     _zero_launches(gm, hm)
-    on = run_orbit(kb, True, k2_calls)
+    on = run_orbit(kb, True, k2_calls, world=world)
     launches = _launches(gm, hm)
-    off = run_orbit(kb, False, [])
+    off = run_orbit(kb, False, [], world=world)
     for name, r in (("on", on), ("off", off)):
         log(f"phase 8 orbit 640x480 x {ORBIT_FRAMES} frames, track_rgbd, "
             f"loop closing {name}: "
@@ -657,16 +704,8 @@ def check_k2_on_closure(hm, kb, k2_calls, k2_err):
     """K2 held bit-equal with its plain version on the K2 calls of a
     closing keyframe, and timed there."""
     import numpy as np
-    import torch
-    times = []
-    for a, b in k2_calls:
-        got, ref = hm.hamming_matrix(a, b), hm.hamming_matrix_plain(a, b)
-        torch.cuda.synchronize()
-        k2_err = max(k2_err, int((got - ref).abs().max()))
-        if not torch.equal(got, ref):
-            raise AssertionError("K2 on the loop closure's inputs: kernel "
-                                 "!= plain")
-        times.append(k2_times(hm, kb, a, b))
+    k2_err = hold_k2(hm, k2_calls, "the loop closure's inputs", k2_err)
+    times = [k2_times(hm, kb, a, b) for a, b in k2_calls]
     if not times:
         raise AssertionError("no K2 call recorded on the closing keyframe")
     ms_k, ms_p, ms_l, b_ms = (float(np.mean([t[i] for t in times]))
@@ -780,7 +819,6 @@ def phase_relocalization(gm, hm, kb, k1_err):
     the mask= path, with K1 held on the relocalized frame's track."""
     import dataclasses
     import numpy as np
-    import torch
     from slam_dynamic_tpu_torch.backend import relocalization
     from slam_dynamic_tpu_torch.backend.loop_closing import LoopCloser
     from slam_dynamic_tpu_torch.frontend.tracking import Tracker
@@ -818,15 +856,7 @@ def phase_relocalization(gm, hm, kb, k1_err):
     if len(calls) != 3:
         raise AssertionError(f"{len(calls)} K1 calls on the relocalized "
                              "frame")
-    for args, lo, hi in calls:
-        got = gm.gated_match(*args, lvl_min=lo, lvl_max=hi)
-        ref = gm.gated_match_plain(*args, lvl_min=lo, lvl_max=hi)
-        torch.cuda.synchronize()
-        k1_err = max(k1_err, max(int((k - p).abs().max())
-                                 for k, p in zip(got, ref)))
-        if not all(torch.equal(k, p) for k, p in zip(got, ref)):
-            raise AssertionError("K1 on the relocalized frame: kernel != "
-                                 "plain")
+    k1_err = hold_k1(gm, calls, "the relocalized frame", k1_err)
     log(f"  K1 on the {len(calls)} calls of the relocalized frame's track: "
         f"bit-equal with plain")
     # the kidnap through track_chunk
@@ -905,6 +935,191 @@ def phase_relocalization(gm, hm, kb, k1_err):
     return launches, k1_err
 
 
+def phase_stereo_chunk(gm, hm, kb, k1_err, k2_err):
+    """Phase 10: ``bench --stereo``'s path, 120 frames at C = 6 with one
+    chunk in flight; K1 and K2 held on the first warm chunk's inputs."""
+    import numpy as np
+    from slam_dynamic_tpu_torch import bench
+
+    k1_calls, k2_calls = [], []
+
+    def warm():
+        stack = contextlib.ExitStack()
+        stack.enter_context(kb.recording_k1(k1_calls))
+        stack.enter_context(kb.recording_k2(k2_calls, every=True))
+        return stack
+
+    _zero_launches(gm, hm)
+    r = bench.run(CHUNK_FRAMES, CHUNK, seed=SEED, stereo=True,
+                  warm_chunk=warm)
+    launches = _launches(gm, hm)
+    system = r["system"]
+    tracker = system.tracker
+    n_lost = sum(s.state != "OK" for s in r["stats"])
+    ms = np.sort(r["step_ms"])
+    ate_mm = r["ate_m"] * 1e3
+    log(f"phase 10 System.track_chunk stereo 640x480 x {CHUNK_FRAMES} "
+        f"frames, C = {CHUNK}, one chunk in flight: {r['fps']:.2f} fps over "
+        f"{r['n_timed']} timed frames, chunk p50 {np.median(ms):.1f} ms, p90 "
+        f"{ms[int(len(ms) * 0.9)]:.1f} ms, keyframes "
+        f"{sum(s.is_keyframe for s in r['stats'])}, LOST frames {n_lost}, "
+        f"ATE {ate_mm:.3f} mm (the JAX package on the CPU: "
+        f"{JAX_STEREO_CHUNK_ATE_MM} mm), trajectory {r['n_traj']} frames, "
+        f"fused dispatches {tracker.dispatches}, packet readbacks "
+        f"{tracker.packet_reads}, launches {launches}")
+    if n_lost or ate_mm >= 30.0 or min(launches.values()) <= 0:
+        raise AssertionError("stereo chunk phase failed its checks")
+    if tracker.packet_reads != tracker.dispatches:
+        raise AssertionError(f"{tracker.packet_reads} packet readbacks for "
+                             f"{tracker.dispatches} fused dispatches")
+    if len(k1_calls) != 3 * CHUNK:
+        raise AssertionError(f"{len(k1_calls)} K1 calls in the first chunk")
+    k1_err = hold_k1(gm, k1_calls, "the stereo chunk's inputs", k1_err)
+    k1_ms = kb.calls_ms(gm.gated_match, k1_calls)
+    b_ms, b_by = kb.k1_calls_bound(k1_calls)
+    log(f"  K1 on the {len(k1_calls)} calls of the first warm chunk: "
+        f"bit-equal with plain; device time per call {k1_ms:.5f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by})")
+    # the stereo matcher's Hamming matrices: one per frame, left against
+    # right keypoints (n_features each)
+    n = system.cfg.orb.n_features
+    stereo = [(a, b) for a, b in k2_calls if a.shape[0] == b.shape[0] == n]
+    if len(stereo) != CHUNK:
+        raise AssertionError(f"{len(stereo)} stereo K2 calls in the first "
+                             f"chunk, of {len(k2_calls)}")
+    k2_err = hold_k2(hm, stereo, "the stereo frame's inputs", k2_err)
+    a, b = stereo[0]
+    ms_k, ms_p, ms_l, b_ms, b_by = k2_times(hm, kb, a, b)
+    log(f"  K2 on the {len(stereo)} stereo matches of the first warm chunk "
+        f"({n} x {n}, of {len(k2_calls)} K2 calls): bit-equal with plain; "
+        f"first frame's: device time kernel {ms_k:.6f} ms, plain "
+        f"{ms_p:.4f} ms, torch._int_mm {ms_l:.6f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}, {b_ms / ms_k:.1%} of it reached)")
+    return launches, k1_err, k2_err
+
+
+def recording_frames(gm, hm, kb, rec):
+    """A ``frame_ctx`` for ``bench.drive_per_frame``: the frames before
+    RECORD_FRAMES append a copy of every K1 and K2 call's inputs to
+    ``rec["k1"]`` and ``rec["k2"]`` and add the launches they made to
+    ``rec["launched"]``."""
+    @contextlib.contextmanager
+    def ctx(i):
+        if i >= RECORD_FRAMES:
+            yield
+            return
+        l1, l2 = gm.launches, hm.launches
+        with kb.recording_k1(rec["k1"]), \
+                kb.recording_k2(rec["k2"], every=True):
+            yield
+        rec["launched"][0] += gm.launches - l1
+        rec["launched"][1] += hm.launches - l2
+    return ctx
+
+
+def hold_recorded(gm, hm, rec, what, k1_err, k2_err):
+    """K1 and K2 bit-equal with their plain versions on every call that
+    ``recording_frames`` kept, each launch of those frames kept once."""
+    n1, n2 = len(rec["k1"]), len(rec["k2"])
+    if [n1, n2] != rec["launched"] or not n1 or not n2:
+        raise AssertionError(f"{what}: {n1} K1 and {n2} K2 calls kept, "
+                             f"{rec['launched']} launched")
+    k1_err = hold_k1(gm, rec["k1"], what, k1_err)
+    k2_err = hold_k2(hm, rec["k2"], what, k2_err)
+    shapes = sorted({(int(a.shape[0]), int(b.shape[0]))
+                     for a, b in rec["k2"]})
+    log(f"  K1 on the {n1} calls and K2 on the {n2} calls of the first "
+        f"{RECORD_FRAMES} frames (K2 shapes {shapes}): bit-equal with plain")
+    return k1_err, k2_err
+
+
+def phase_stereo_dynamic_frame(gm, hm, kb, k1_err, k2_err):
+    """Phase 10b: the stereo pair of the moving-object world through
+    track_stereo(detections=), classifying every 2nd frame; K1 and K2
+    held on the first frames' calls."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from slam_dynamic_tpu_torch.bench import drive_per_frame
+    from slam_dynamic_tpu_torch.io.bench_world import bench_world
+    from slam_dynamic_tpu_torch.io.evo import ate_rmse
+    from slam_dynamic_tpu_torch.system import System
+
+    world = bench_world(STEREO_DYN_FRAMES, SEED, dynamic=True,
+                        sensor="stereo")
+    seq, cfg = world[0], world[3]
+    cfg = cfg.replace(
+        tracking=dataclasses.replace(cfg.tracking, pipeline_depth=1),
+        dynamic=dataclasses.replace(cfg.dynamic, classify_every=2))
+    system = System(cfg)
+    rec = {"k1": [], "k2": [], "launched": [0, 0]}
+    _zero_launches(gm, hm)
+    r = drive_per_frame(system, world, STEREO_DYN_FRAMES, dynamic=True,
+                        sync=torch.cuda.synchronize,
+                        frame_ctx=recording_frames(gm, hm, kb, rec))
+    launches = _launches(gm, hm)
+    states, first2, est = r["states"], r["first_dynamic"], r["est"]
+    ate_mm = ate_rmse(est, seq.t_wc[:len(est)]) * 1e3
+    n_lost = states.count("LOST")
+    log(f"phase 10b System.track_stereo dynamic scene 640x480 x "
+        f"{STEREO_DYN_FRAMES} frames, classification every 2nd frame: p50 "
+        f"{np.median(r['times'][10:]) * 1e3:.2f} ms a frame after the first "
+        f"10, "
+        f"LOST frames {n_lost}, ATE {ate_mm:.3f} mm, box status "
+        f"{tuple(int(x) for x in system.boxes.status)} (2 from frame "
+        f"{first2}; the JAX package on the CPU: ATE "
+        f"{JAX_STEREO_DYN[0]} mm, 2 from frame {JAX_STEREO_DYN[1]}), "
+        f"launches {launches}")
+    if n_lost or first2 is None or min(launches.values()) <= 0:
+        raise AssertionError("stereo dynamic phase failed its checks")
+    return (launches, *hold_recorded(gm, hm, rec, "phase 10b's frames",
+                                     k1_err, k2_err))
+
+
+def phase_mono(gm, hm, kb, k1_err, k2_err):
+    """Phase 11: track_mono on the 640x480 mono world; K1 and K2 held on
+    the calls of the bootstrap and the first tracked frames."""
+    import numpy as np
+    import torch
+    from slam_dynamic_tpu_torch.bench import drive_per_frame
+    from slam_dynamic_tpu_torch.io.bench_world import bench_world
+    from slam_dynamic_tpu_torch.io.evo import ate_rmse
+    from slam_dynamic_tpu_torch.system import System
+
+    world = bench_world(MONO_FRAMES, SEED, sensor="mono")
+    seq, cfg = world[0], world[3]
+    system = System(cfg)
+    rec = {"k1": [], "k2": [], "launched": [0, 0]}
+    _zero_launches(gm, hm)
+    r = drive_per_frame(system, world, MONO_FRAMES,
+                        sync=torch.cuda.synchronize,
+                        frame_ctx=recording_frames(gm, hm, kb, rec))
+    launches = _launches(gm, hm)
+    states, first_ok, est = r["states"], r["first_ok"], r["est"]
+    after = states[first_ok:] if first_ok is not None else []
+    i0 = MONO_FRAMES - len(est)
+    ate_m = ate_rmse(est, seq.t_wc[i0:i0 + len(est)], with_scale=True)
+    if first_ok is None or first_ok >= RECORD_FRAMES - 1:
+        raise AssertionError(f"mono initialized at frame {first_ok}, not "
+                             f"within the {RECORD_FRAMES} recorded frames")
+    log(f"phase 11 System.track_mono 640x480 x {MONO_FRAMES} frames: "
+        f"initialized at frame {first_ok}, OK {after.count('OK')} of the "
+        f"{len(after)} frames from there, keyframes "
+        f"{system.tracker.kf_seq}, landmarks "
+        f"{int(system.tracker.map.n_lm)}, p50 "
+        f"{np.median(r['times'][RECORD_FRAMES:]) * 1e3:.2f} ms a frame from "
+        f"frame {RECORD_FRAMES} on, "
+        f"Sim3-aligned ATE {ate_m * 1e3:.3f} mm (the JAX package on the "
+        f"CPU: initialized at frame {JAX_MONO[0]}, {JAX_MONO[1]} mm; the "
+        f"port on the CPU with JAX's bootstrap draws: "
+        f"{JAX_MONO_PORT_CPU_MM} mm), launches {launches}")
+    if after.count("OK") < 0.9 * len(after) or ate_m >= 0.15 \
+            or min(launches.values()) <= 0:
+        raise AssertionError("mono phase failed its checks")
+    return (launches, *hold_recorded(gm, hm, rec, "phase 11's frames",
+                                     k1_err, k2_err))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -937,19 +1152,38 @@ def main():
         f"{torch.get_num_threads()}, load average "
         f"{' '.join(f'{x:.2f}' for x in os.getloadavg())}")
     dev = torch.device("cuda")
-    k1_err = phase_k1(dev, gm, kb, hm.INVALID)
-    k2_err = phase_k2(dev, hm, kb)
-    frame_launches, calls = phase_system(gm, hm, kb)
-    k1_row = phase_k1_path(gm, kb, calls, k1_err)
-    chunk_launches = phase_chunk(gm, hm, kb)
-    dyn_launches, k2_row = phase_dynamic_chunk(gm, hm, kb, k2_err)
-    dyn_frame_launches = phase_dynamic_frame(gm, hm)
-    loop_launches, k2_row["max_abs_err"] = phase_loop_closure(
-        gm, hm, kb, k2_row["max_abs_err"])
-    loop_chunk_launches, k2_row["max_abs_err"] = phase_loop_closure_chunked(
-        gm, hm, kb, k2_row["max_abs_err"])
-    reloc_launches, k1_row["max_abs_err"] = phase_relocalization(
-        gm, hm, kb, k1_row["max_abs_err"])
+    walls = {"0": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t
+        return out
+
+    k1_err = timed("1", phase_k1, dev, gm, kb, hm.INVALID)
+    k2_err = timed("2", phase_k2, dev, hm, kb)
+    frame_launches, calls = timed("3", phase_system, gm, hm, kb)
+    k1_row = timed("4", phase_k1_path, gm, kb, calls, k1_err)
+    chunk_launches = timed("5", phase_chunk, gm, hm, kb)
+    dyn_launches, k2_row = timed("6", phase_dynamic_chunk, gm, hm, kb,
+                                 k2_err)
+    dyn_frame_launches = timed("7", phase_dynamic_frame, gm, hm)
+    loop_launches, k2_row["max_abs_err"] = timed(
+        "8", phase_loop_closure, gm, hm, kb, k2_row["max_abs_err"])
+    loop_chunk_launches, k2_row["max_abs_err"] = timed(
+        "8b", phase_loop_closure_chunked, gm, hm, kb, k2_row["max_abs_err"])
+    reloc_launches, k1_row["max_abs_err"] = timed(
+        "9", phase_relocalization, gm, hm, kb, k1_row["max_abs_err"])
+    errs = k1_row["max_abs_err"], k2_row["max_abs_err"]
+    stereo_launches, *errs = timed("10", phase_stereo_chunk, gm, hm, kb,
+                                   *errs)
+    stereo_dyn_launches, *errs = timed("10b", phase_stereo_dynamic_frame,
+                                       gm, hm, kb, *errs)
+    mono_launches, *errs = timed("11", phase_mono, gm, hm, kb, *errs)
+    k1_row["max_abs_err"], k2_row["max_abs_err"] = errs
+    log("wall time per phase, s (host clock, world rendering included): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; since the build began {time.perf_counter() - t0:.1f}")
     rows = [k1_row, k2_row]
     for r in rows:
         r["launches"] = chunk_launches[r["name"]]
@@ -960,7 +1194,10 @@ def main():
             "track_rgbd_dynamic": dyn_frame_launches[r["name"]],
             "loop_closure": loop_launches[r["name"]],
             "loop_closure_chunked": loop_chunk_launches[r["name"]],
-            "relocalization": reloc_launches[r["name"]]}
+            "relocalization": reloc_launches[r["name"]],
+            "track_chunk_stereo": stereo_launches[r["name"]],
+            "track_stereo_dynamic": stereo_dyn_launches[r["name"]],
+            "track_mono": mono_launches[r["name"]]}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_per_phase"]

@@ -3,7 +3,8 @@ keyframes.
 
 Port of ``slam_dynamic_tpu/backend/triangulation.py``
 (``fundamental_from_poses``, ``triangulate_dlt``, ``triangulate_between``
-:59, ``_insert_triangulated``, ``triangulate_with_neighbors`` :234): for
+:59, ``create_new_landmarks`` :176 (mono), ``_insert_triangulated``,
+``triangulate_with_neighbors`` :234): for
 the new keyframe and each of its best earlier covisible neighbours, match
 unbound keypoints under the epipolar and octave gates (the Hamming matrix
 is kernel K2 on the card), triangulate by DLT or take the stereo depth
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops import hamming as hm
@@ -154,6 +156,36 @@ def triangulate_between(cam: Intrinsics, scale_factor,
     rf = scale_factor * 1.5
     ok = ok & (ratio_d < ratio_o * rf) & (ratio_d > ratio_o / rf)
     return TriangulationOut(X, idx2, ok)
+
+
+def create_new_landmarks(m: MapState, cam: Intrinsics, k: int,
+                         scale_factor: float, n_neighbors: int = 5,
+                         n_levels: int = 8) -> MapState:
+    """Mono keyframes: triangulate keyframe k against its best earlier
+    covisible neighbours (weight >= 15) and insert the new landmarks. The
+    neighbours are ordered on a host copy by ``np.argsort`` as the
+    reference orders them (a torch sort breaks ties otherwise); one
+    readback per keyframe."""
+    covis = m.covis[k].cpu().numpy().copy()
+    covis[int(k):] = 0                     # only earlier keyframes
+    order = np.argsort(-covis)[:n_neighbors]
+    dev = m.kf_R.device
+    sf = torch.tensor(scale_factor, dtype=torch.float32, device=dev)
+    for k2 in order:
+        if covis[k2] < 15:
+            break
+        k2 = int(k2)
+        out = triangulate_between(
+            cam, sf,
+            m.kf_kp_xy[k], m.kf_kp_desc[k], m.kf_kp_valid[k],
+            m.kf_kp_level[k], m.kf_kp_angle[k], m.kf_obs_lm[k] < 0,
+            m.kf_R[k], m.kf_t[k],
+            m.kf_kp_xy[k2], m.kf_kp_desc[k2], m.kf_kp_valid[k2],
+            m.kf_kp_level[k2], m.kf_kp_angle[k2], m.kf_obs_lm[k2] < 0,
+            m.kf_R[k2], m.kf_t[k2], n_levels=n_levels)
+        m = _insert_triangulated(m, k, torch.tensor(k2, device=dev), out,
+                                 sf, n_levels)
+    return m
 
 
 def _insert_triangulated(m: MapState, k, k2, out: TriangulationOut,

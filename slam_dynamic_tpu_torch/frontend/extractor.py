@@ -2,9 +2,12 @@
 orientation -> rBRIEF.
 
 Port of ``slam_dynamic_tpu/frontend/extractor.py:35-104``: the per-level
-level budgets and the unrolled per-level path (``config.py:53``
-``batched_levels=False``). Output is a fixed-capacity ``Keypoints`` struct
-(n_features slots + validity mask) in level-0 pixels.
+budgets, the unrolled per-level path (``config.py:53``
+``batched_levels=False``, the default) and the batched-over-levels path
+(``batched_levels=True``, ``ops/orb_batched.py``: one set of launches
+for all levels, for about 3x the pixel work). Output is a fixed-capacity
+``Keypoints`` struct (n_features slots + validity mask) in level-0
+pixels.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import numpy as np
 import torch
 
 from ..config import ORBConfig
-from ..ops import fast, orb, pyramid
+from ..ops import fast, orb, orb_batched, pyramid
 
 
 class Keypoints(NamedTuple):
@@ -41,11 +44,11 @@ def level_budgets(cfg: ORBConfig) -> List[int]:
 
 def extract(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
     """image: [H, W] float32 grayscale in [0, 255] on any device."""
-    if cfg.batched_levels:
-        raise NotImplementedError(
-            "the batched-levels extractor (ops/orb_batched.py in the "
-            "reference) is not ported; use ORBConfig(batched_levels=False)")
     budgets = level_budgets(cfg)
+    if cfg.batched_levels:
+        return Keypoints(*orb_batched.extract_batched(
+            image, cfg.n_levels, cfg.scale_factor, cfg.ini_th_fast,
+            cfg.min_th_fast, cfg.edge_threshold, cfg.cell_size, budgets))
     scales = pyramid.level_scales(cfg.n_levels, cfg.scale_factor)
     levels = pyramid.build_pyramid(image, cfg.n_levels, cfg.scale_factor)
     parts = []

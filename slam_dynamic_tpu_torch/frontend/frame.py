@@ -2,13 +2,17 @@
 
 Port of ``slam_dynamic_tpu/frontend/frame.py`` (``FrameData`` :25,
 ``Frame``, ``keypoints_in_boxes`` :73, ``build_frame`` :88,
-``empty_frame_data`` :151, ``pad_frame_data`` :163), and ``inside_boxes``,
-the one in-box test of the port. All N keypoint slots
-are kept and ``static_mask`` carries the dynamic-box partition, so shapes
-stay fixed. ``build_frame`` serves the frames the tracker builds outside
-the fused step (initialization, LOST frames and the ``mask=`` path):
-RGB-D, with the detector's boxes and a dynamic-pixel mask quarantining
-the keypoints inside them.
+``empty_frame_data`` :151, ``pad_frame_data`` :163), with
+``inside_boxes``, the one in-box test of the port, and
+``keypoint_depth``, the depth association of every sensor that
+``build_frame`` and the fused step share. All N keypoint slots are kept
+and ``static_mask`` carries the dynamic-box partition, so shapes stay
+fixed. ``build_frame`` serves the frames the tracker builds outside
+the fused step (initialization, LOST frames, the ``mask=`` path and mono
+with the dynamic-object module), for every sensor: the depth of an RGB-D
+depth map, of the stereo matcher on a right image, or none (mono); the
+detector's boxes and a dynamic-pixel mask quarantine the keypoints
+inside them.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import numpy as np
 import torch
 
 from ..config import SystemConfig
-from ..ops.stereo import depth_from_rgbd
+from ..ops.stereo import depth_from_rgbd, match_stereo
 from ..utils.camera import Intrinsics, undistort_points
 from .extractor import extract
 
@@ -77,29 +81,55 @@ def keypoints_in_boxes(xy: torch.Tensor, valid: torch.Tensor, boxes,
     return (inside_boxes(xy, b) & bv[:, None]).any(0) & valid
 
 
+def keypoint_depth(cam: Intrinsics, image, kp, scale, orb_cfg,
+                   scale_factor, right=None, depth_map=None):
+    """(u_right, depth) [N] of the keypoints, -1 where unknown: the stereo
+    matcher against the ``right`` image (its own extraction), the lookup
+    in ``depth_map`` (metres), or none (mono). Images are [H, W] float32
+    on the keypoints' device."""
+    if right is not None:
+        kp_r = extract(right, orb_cfg)
+        sm = match_stereo(image, right, kp, kp_r, cam.bf, 0.1, scale,
+                          scale_factor ** kp_r.level.to(torch.float32))
+    elif depth_map is not None:
+        sm = depth_from_rgbd(depth_map, kp.xy, kp.valid, cam.bf)
+    else:
+        return (torch.full_like(kp.response, -1.0),
+                torch.full_like(kp.response, -1.0))
+    return sm.u_right, sm.depth
+
+
 def build_frame(cfg: SystemConfig, cam: Intrinsics, gray: np.ndarray,
-                frame_id: int, timestamp: float, depth_map: np.ndarray,
+                frame_id: int, timestamp: float,
+                depth_map: Optional[np.ndarray] = None,
                 boxes: Optional[np.ndarray] = None,
                 box_valid: Optional[np.ndarray] = None,
-                mask: Optional[np.ndarray] = None) -> Frame:
-    """Construct a frame from host images. uint16 depth is scaled to metres
-    on the host, as the reference's ``build_frame`` does; keypoints inside
-    an active box [B, 4] or on a pixel of ``mask`` [H, W] (True = dynamic,
-    the reference's Mask R-CNN path, Frame.cc:297-403) are quarantined
-    (``static_mask`` False)."""
+                mask: Optional[np.ndarray] = None,
+                right: Optional[np.ndarray] = None) -> Frame:
+    """Construct a frame from host images: with the ``right`` image, its
+    own extraction and the stereo matcher; with a ``depth_map`` (uint16
+    is scaled to metres on the host, as the reference's ``build_frame``
+    does), the depth lookup; with neither, no depth (mono). Keypoints
+    inside an active box [B, 4] or on a pixel of ``mask`` [H, W] (True =
+    dynamic, the reference's Mask R-CNN path, Frame.cc:297-403) are
+    quarantined (``static_mask`` False)."""
     dev = cam.fx.device
-    depth_map = np.asarray(depth_map)
-    if depth_map.dtype == np.uint16:
-        depth_map = depth_map.astype(np.float32) \
-            / max(cfg.camera.depth_map_factor, 1e-9)
     img = torch.as_tensor(np.asarray(gray, np.float32), device=dev)
     kp = extract(img, cfg.orb)
     xy = undistort_points(cam, kp.xy)
-    scale = torch.tensor(cfg.orb.scale_factor, dtype=torch.float32,
-                         device=dev) ** kp.level.to(torch.float32)
-    sm = depth_from_rgbd(
-        torch.as_tensor(np.asarray(depth_map, np.float32), device=dev),
-        kp.xy, kp.valid, cam.bf)
+    sf = torch.tensor(cfg.orb.scale_factor, dtype=torch.float32, device=dev)
+    scale = sf ** kp.level.to(torch.float32)
+    if right is not None:
+        right = torch.as_tensor(np.asarray(right, np.float32), device=dev)
+    if depth_map is not None:
+        depth_map = np.asarray(depth_map)
+        if depth_map.dtype == np.uint16:
+            depth_map = depth_map.astype(np.float32) \
+                / max(cfg.camera.depth_map_factor, 1e-9)
+        depth_map = torch.as_tensor(np.asarray(depth_map, np.float32),
+                                    device=dev)
+    ur, depth = keypoint_depth(cam, img, kp, scale, cfg.orb, sf, right,
+                               depth_map)
     static = kp.valid & ~keypoints_in_boxes(xy, kp.valid, boxes, box_valid)
     if mask is not None:
         h, w = img.shape
@@ -109,8 +139,7 @@ def build_frame(cfg: SystemConfig, cam: Intrinsics, gray: np.ndarray,
         static = static & ~mk[yi, xi]
     data = FrameData(xy=xy, xy_raw=kp.xy, level=kp.level, angle=kp.angle,
                      response=kp.response, desc=kp.desc, valid=kp.valid,
-                     ur=sm.u_right, depth=sm.depth, static_mask=static,
-                     scale=scale)
+                     ur=ur, depth=depth, static_mask=static, scale=scale)
     data = pad_frame_data(data, cfg.capacity.max_keypoints)
     return Frame(data=data, frame_id=frame_id, timestamp=timestamp)
 

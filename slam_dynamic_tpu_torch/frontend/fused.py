@@ -9,7 +9,9 @@ Port of ``slam_dynamic_tpu/frontend/fused.py:54-279``
 host (``fused_track_prebuilt`` :518: after a relocalization and on the
 ``mask=`` path). Per frame:
 
-  extract -> undistort -> depth lookup -> box quarantine -> [dynamic
+  extract -> undistort -> depth (RGB-D: the depth map; stereo: a second
+  extraction and the row-band matcher; mono: none) -> box quarantine ->
+  [dynamic
   scenes: H/F box classification against the reference frame, feature
   reinstatement] -> track against the last frame's landmarks (motion
   model; the narrow pass and the 2x wide fallback both run, the result
@@ -32,7 +34,6 @@ from torch.profiler import record_function
 
 from ..config import ORBConfig
 from ..ops.gated_match import accept_match, gated_match
-from ..ops.stereo import depth_from_rgbd
 from ..optim.pose_opt import optimize_pose
 from ..utils.camera import Intrinsics, project, undistort_points
 from ..worldmap.state import MapState
@@ -40,7 +41,7 @@ from . import tracking_ops as tops
 from .dynamics_ops import (box_3d_state, classify_boxes,
                            reinstate_features)
 from .extractor import extract
-from .frame import FrameData, inside_boxes, pad_frame_data
+from .frame import FrameData, inside_boxes, keypoint_depth, pad_frame_data
 
 
 class FusedOut(NamedTuple):
@@ -53,27 +54,40 @@ class FusedOut(NamedTuple):
     packed: torch.Tensor      # [28] float32 host packet (see module doc)
 
 
+def stereo_residuals(sensor: str) -> bool:
+    """Whether a sensor's frames are tracked and mapped with (u, v,
+    u_right) residuals: the depth sensors; mono uses (u, v)."""
+    return sensor in ("stereo", "rgbd")
+
+
 def build_frame_data(cam: Intrinsics, image, aux, boxes, box_active,
-                     orb_cfg: ORBConfig, scale_factor, n_slots: int = 0,
-                     depth_scale=None) -> FrameData:
-    """Device-side RGB-D frame construction. ``image``/``aux`` arrive in
-    camera-native dtypes (uint8 gray, uint16 depth) and are cast here, on
-    the device; ``depth_scale`` converts raw depth units to metres.
-    ``u_right`` is in full-resolution pixels. Keypoints inside an active
-    box [B, 4] are quarantined (``static_mask``)."""
+                     orb_cfg: ORBConfig, scale_factor, sensor: str = "rgbd",
+                     n_slots: int = 0, depth_scale=None) -> FrameData:
+    """Device-side frame construction for every sensor. ``aux`` is the
+    depth map (``rgbd``), the right image (``stereo``, its own extraction
+    and the row-band matcher) or unused (``mono``: no depth). ``image``
+    and ``aux`` arrive in camera-native dtypes (uint8 gray, uint16 depth)
+    and are cast here, on the device; ``depth_scale`` converts raw depth
+    units to metres. ``u_right`` is in full-resolution pixels. Keypoints
+    inside an active box [B, 4] are quarantined (``static_mask``)."""
     image = image.to(torch.float32)
-    aux = aux.to(torch.float32)
-    if depth_scale is not None:
-        aux = aux * depth_scale
     kp = extract(image, orb_cfg)
     xy = undistort_points(cam, kp.xy)
     scale = scale_factor ** kp.level.to(torch.float32)
-    sm = depth_from_rgbd(aux, kp.xy, kp.valid, cam.bf)
+    right = depth_map = None
+    if sensor == "stereo":
+        right = aux.to(torch.float32)
+    elif sensor == "rgbd":
+        depth_map = aux.to(torch.float32)
+        if depth_scale is not None:
+            depth_map = depth_map * depth_scale
+    ur, depth = keypoint_depth(cam, image, kp, scale, orb_cfg, scale_factor,
+                               right, depth_map)
     inside = (inside_boxes(xy, boxes) & box_active[:, None]).any(0)
     fd = FrameData(xy=xy, xy_raw=kp.xy, level=kp.level, angle=kp.angle,
                    response=kp.response, desc=kp.desc, valid=kp.valid,
-                   ur=sm.u_right, depth=sm.depth,
-                   static_mask=kp.valid & ~inside, scale=scale)
+                   ur=ur, depth=depth, static_mask=kp.valid & ~inside,
+                   scale=scale)
     return pad_frame_data(fd, n_slots) if n_slots else fd
 
 
@@ -187,36 +201,40 @@ def fused_track_step(m: MapState, cam: Intrinsics, bounds, image, aux,
                      boxes, box_active, last_obs_lm, R_last, t_last,
                      R_prev2, t_prev2, has_vel, ref_kf, orb_cfg: ORBConfig,
                      mm_radius, local_radius, depth_th, scale_factor,
-                     min_inliers_track, max_kf: int = 16,
-                     max_lm: int = 4096, n_levels: int = 8,
-                     n_slots: int = 0, depth_scale=None) -> FusedOut:
-    """The whole per-frame RGB-D step (``fused.py:255``): aux is the depth
-    map; R_prev2/t_prev2 is the pose two frames back and has_vel a 0/1
-    scalar; ref_kf's pose returns in the packet tail."""
+                     min_inliers_track, sensor: str = "rgbd",
+                     max_kf: int = 16, max_lm: int = 4096,
+                     n_levels: int = 8, n_slots: int = 0,
+                     depth_scale=None) -> FusedOut:
+    """The whole per-frame step (``fused.py:255``): aux is the depth map
+    (``rgbd``), the right image (``stereo``) or unused (``mono``);
+    R_prev2/t_prev2 is the pose two frames back and has_vel a 0/1 scalar;
+    ref_kf's pose returns in the packet tail. Depth sensors track with
+    stereo residuals (u, v, u_right)."""
     with record_function("frame_build"):
         fd = build_frame_data(cam, image, aux, boxes, box_active, orb_cfg,
-                              scale_factor, n_slots=n_slots,
+                              scale_factor, sensor, n_slots=n_slots,
                               depth_scale=depth_scale)
     R_pred, t_pred = _predict_inside(R_last, t_last, R_prev2, t_prev2,
                                      has_vel)
     return _track_stages(m, cam, bounds, fd, last_obs_lm, R_pred, t_pred,
                          R_last, t_last, ref_kf, mm_radius, local_radius,
-                         depth_th, scale_factor, min_inliers_track, True,
-                         max_kf, max_lm, n_levels)
+                         depth_th, scale_factor, min_inliers_track,
+                         stereo_residuals(sensor), max_kf, max_lm, n_levels)
 
 
 def fused_track_prebuilt(m: MapState, cam: Intrinsics, bounds,
                          fd: FrameData, last_obs_lm, R_pred, t_pred, R_last,
                          t_last, ref_kf, mm_radius, local_radius, depth_th,
-                         scale_factor, min_inliers_track, max_kf: int = 16,
+                         scale_factor, min_inliers_track,
+                         sensor: str = "rgbd", max_kf: int = 16,
                          max_lm: int = 4096, n_levels: int = 8) -> FusedOut:
     """The tracking stages on a FrameData built on the host
     (``fused.py:518``), with the motion-model prediction given: K1 runs
     three times, as in the fused step."""
     return _track_stages(m, cam, bounds, fd, last_obs_lm, R_pred, t_pred,
                          R_last, t_last, ref_kf, mm_radius, local_radius,
-                         depth_th, scale_factor, min_inliers_track, True,
-                         max_kf, max_lm, n_levels)
+                         depth_th, scale_factor, min_inliers_track,
+                         stereo_residuals(sensor), max_kf, max_lm, n_levels)
 
 
 def _pose_seed(seed, R_last, t_last):
@@ -261,11 +279,11 @@ def fused_track_step_dyn(m: MapState, cam: Intrinsics, bounds, image, aux,
                          have_ref, last_obs_lm, R_last, t_last, R_prev2,
                          t_prev2, has_vel, ref_kf, orb_cfg: ORBConfig,
                          mm_radius, local_radius, depth_th, scale_factor,
-                         min_inliers_track, seed, max_kf: int = 16,
-                         max_lm: int = 4096, n_levels: int = 8,
-                         n_slots: int = 0, n_hyp: int = 256,
-                         depth_scale=None, classify: bool = True
-                         ) -> FusedOut:
+                         min_inliers_track, seed, sensor: str = "rgbd",
+                         max_kf: int = 16, max_lm: int = 4096,
+                         n_levels: int = 8, n_slots: int = 0,
+                         n_hyp: int = 256, depth_scale=None,
+                         classify: bool = True) -> FusedOut:
     """The dynamic-scene step (``fused.py:536``): frame build with the
     boxes quarantining unless the host found them static (status 1), H/F
     classification of every box against ``ref_fd`` (``classify=False``
@@ -276,7 +294,7 @@ def fused_track_step_dyn(m: MapState, cam: Intrinsics, bounds, image, aux,
     with record_function("frame_build"):
         fd = build_frame_data(cam, image, aux, boxes,
                               box_active & (box_status != 1), orb_cfg,
-                              scale_factor, n_slots=n_slots,
+                              scale_factor, sensor, n_slots=n_slots,
                               depth_scale=depth_scale)
     dyn = dict(box_status=box_status, ref_fd=ref_fd, have_ref=have_ref,
                seed=seed, n_hyp=n_hyp)
@@ -286,8 +304,8 @@ def fused_track_step_dyn(m: MapState, cam: Intrinsics, bounds, image, aux,
                                      has_vel)
     out = _track_stages(m, cam, bounds, fd, last_obs_lm, R_pred, t_pred,
                         R_last, t_last, ref_kf, mm_radius, local_radius,
-                        depth_th, scale_factor, min_inliers_track, True,
-                        max_kf, max_lm, n_levels)
+                        depth_th, scale_factor, min_inliers_track,
+                        stereo_residuals(sensor), max_kf, max_lm, n_levels)
     return _dyn_packet(cam, out, verdict, boxes, box_active)
 
 
@@ -295,12 +313,13 @@ def fused_track_chunk(m: MapState, cam: Intrinsics, bounds, images, auxs,
                       boxes, box_active, last_obs_lm, R_last, t_last,
                       R_prev2, t_prev2, has_vel, ref_kf, orb_cfg: ORBConfig,
                       mm_radius, local_radius, depth_th, scale_factor,
-                      min_inliers_track, max_kf: int = 16,
-                      max_lm: int = 4096, n_levels: int = 8,
-                      n_slots: int = 0, depth_scale=None, dyn=None):
-    """C consecutive RGB-D frames in one call (``fused.py:328``, through
-    ``_chunk_body`` :400). images, auxs [C, H, W]; boxes [C, B, 4];
-    box_active [C, B].
+                      min_inliers_track, sensor: str = "rgbd",
+                      max_kf: int = 16, max_lm: int = 4096,
+                      n_levels: int = 8, n_slots: int = 0,
+                      depth_scale=None, dyn=None):
+    """C consecutive frames in one call (``fused.py:328``, through
+    ``_chunk_body`` :400). images, auxs [C, H, W] (auxs as
+    ``fused_track_step``'s aux); boxes [C, B, 4]; box_active [C, B].
 
     Frames chain on the device as they do across calls: frame j+1 takes
     frame j's pose as its motion-model base, frame j's landmark ids as its
@@ -320,7 +339,7 @@ def fused_track_chunk(m: MapState, cam: Intrinsics, bounds, images, auxs,
             box_active[j] & (dyn["box_status"] != 1)
         with record_function("frame_build"):
             fd = build_frame_data(cam, images[j], auxs[j], boxes[j],
-                                  quarantine, orb_cfg, scale_factor,
+                                  quarantine, orb_cfg, scale_factor, sensor,
                                   n_slots=n_slots, depth_scale=depth_scale)
         if dyn is not None:
             # every chunk frame classifies against the chunk-start
@@ -332,8 +351,8 @@ def fused_track_chunk(m: MapState, cam: Intrinsics, bounds, images, auxs,
         R_pred, t_pred = _predict_inside(Rl, tl, Rp2, tp2, hv)
         out = _track_stages(mm, cam, bounds, fd, obs, R_pred, t_pred, Rl, tl,
                             ref_kf, mm_radius, local_radius, depth_th,
-                            scale_factor, min_inliers_track, True, max_kf,
-                            max_lm, n_levels)
+                            scale_factor, min_inliers_track,
+                            stereo_residuals(sensor), max_kf, max_lm, n_levels)
         if dyn is not None:
             out = _dyn_packet(cam, out, verdict, boxes[j], box_active[j])
         outs.append(out)
@@ -349,10 +368,10 @@ def fused_track_chunk_dyn(m: MapState, cam: Intrinsics, bounds, images,
                           t_last, R_prev2, t_prev2, has_vel, ref_kf,
                           orb_cfg: ORBConfig, mm_radius, local_radius,
                           depth_th, scale_factor, min_inliers_track, seed,
-                          max_kf: int = 16, max_lm: int = 4096,
-                          n_levels: int = 8, n_slots: int = 0,
-                          n_hyp: int = 256, depth_scale=None,
-                          classify_every: int = 1):
+                          sensor: str = "rgbd", max_kf: int = 16,
+                          max_lm: int = 4096, n_levels: int = 8,
+                          n_slots: int = 0, n_hyp: int = 256,
+                          depth_scale=None, classify_every: int = 1):
     """Dynamic-scene chunk (``fused.py:483``): ``fused_track_chunk`` with
     each frame's H/F classification against the chunk-start reference
     frame on every ``classify_every``-th chunk frame (the others emit
@@ -364,5 +383,5 @@ def fused_track_chunk_dyn(m: MapState, cam: Intrinsics, bounds, images,
         m, cam, bounds, images, auxs, boxes, box_active, last_obs_lm,
         R_last, t_last, R_prev2, t_prev2, has_vel, ref_kf, orb_cfg,
         mm_radius, local_radius, depth_th, scale_factor, min_inliers_track,
-        max_kf=max_kf, max_lm=max_lm, n_levels=n_levels, n_slots=n_slots,
-        depth_scale=depth_scale, dyn=dyn)
+        sensor=sensor, max_kf=max_kf, max_lm=max_lm, n_levels=n_levels,
+        n_slots=n_slots, depth_scale=depth_scale, dyn=dyn)

@@ -1,4 +1,4 @@
-"""The tracking state machine for the RGB-D path.
+"""The tracking state machine, for every sensor.
 
 Port of ``slam_dynamic_tpu/frontend/tracking.py:131`` (``Tracker``):
 ``step_images`` :193 with its pipelined branch (:276-307) and its
@@ -9,8 +9,10 @@ non-OK state takes the per-frame route, :329-331, and in-flight frames
 are dropped after a LOST finalize, :346-350, :442-451),
 ``_ChunkPacket`` and ``_PacketRow`` :82-108, ``_finalize_one`` :494,
 ``_finalize_pending`` :516 and ``flush`` :583 (one ``flush`` here),
-``_bookkeep_pipelined`` :547 (``_record_pose``), ``process`` :632,
-``_bookkeep`` :644 (with the host velocity), ``_initialize`` :723,
+``_bookkeep_pipelined`` :547 (``_record_pose``), ``_stage_inputs`` :589
+(with ``_zero_aux`` :624 for mono), ``process`` :632, ``_bookkeep`` :644
+(with the host velocity), ``_initialize`` :723 (depth sensors) and
+``_initialize_mono`` :760 (the two-view bootstrap),
 ``_relocalize_then_track`` :833 (the ``relocalizer`` and ``on_reloc``
 hooks :157-164, and the young-map and ``max_lost_frames`` reset policy
 :858-883), ``_predict_pose`` :916, ``_track`` :926 (a host-built frame
@@ -20,34 +22,42 @@ through ``fused_track_prebuilt``), ``_post_track`` :975 (with
 fallback (``_bow_recover`` :55, ``_bow_fallback``). The branchy control
 stays on the host; per frame the device sees one fused step and the host
 reads one packet ([28] floats, [28 + 17 B] with the dynamic-scene ``dyn``
-argument; one [C, ...] packet per chunk). Keyframe frames add one
-mapping-stage call and the keyframe hook (loop closing, wired by the
-System); a LOST frame calls the relocalizer and, on success, the
-drift-correction hook.
+argument; one [C, ...] packet per chunk). The sensor (``cfg.sensor``)
+picks the frame's depth: the RGB-D depth map, the stereo matcher on the
+right image, or none (mono, which tracks with (u, v) residuals,
+``stereo_obs`` False, and makes its landmarks by triangulation).
+Keyframe frames add one mapping-stage call and the keyframe hook (loop
+closing, wired by the System); a LOST frame calls the relocalizer and,
+on success, the drift-correction hook.
 
-Not ported yet: the adaptive pipeline depth, stereo and mono, and
-localization-only mode. States: NOT_INITIALIZED -> OK <-> LOST.
+Not ported yet: the adaptive pipeline depth and localization-only mode.
+States: NOT_INITIALIZED -> OK <-> LOST.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..backend.local_mapping import local_ba
 from ..backend.mapping_stage import insert_keyframe_stage
 from ..backend.relocalization import _match_frame_kf
+from ..backend.triangulation import create_new_landmarks
 from ..config import SystemConfig
 from ..optim.pose_opt import optimize_pose
 from ..utils.camera import Intrinsics, undistorted_bounds
 from ..worldmap.keyframe_ops import make_keyframe
-from ..worldmap.state import MapState, empty_map, next_kf_slot
+from ..worldmap.state import (MapState, add_landmarks, empty_map,
+                              insert_keyframe, next_kf_slot)
 from .frame import Frame, FrameData, build_frame
 from .fused import (fused_track_chunk, fused_track_chunk_dyn,
                     fused_track_prebuilt, fused_track_step,
-                    fused_track_step_dyn)
+                    fused_track_step_dyn, stereo_residuals)
+from .initializer import try_initialize
 
 
 @dataclasses.dataclass
@@ -166,6 +176,17 @@ class Tracker:
         self._ref_kf_dev = None
         self._prev2_pose = None
         self._lost_streak = 0
+        self._init_ref: Optional[Frame] = None   # mono: the first view
+        # mono bootstrap draws: (seed, match mask) -> (idx_h, idx_f)
+        # replaces try_initialize's H and F minimal sets (the parity
+        # tests feed JAX's)
+        self.init_sample_fn: Optional[Callable] = None
+        self._zero_aux_cache = None
+
+    @property
+    def stereo_obs(self) -> bool:
+        """(u, v, u_right) residuals: the depth sensors; mono (u, v)."""
+        return stereo_residuals(self.cfg.sensor)
 
     # ------------------------------------------------------------------
     def _scalar_consts(self):
@@ -193,17 +214,28 @@ class Tracker:
             }
         return self._dev_consts
 
-    def _stage_inputs(self, gray, depth):
-        """Host->device copy of one frame in camera-native dtypes (uint8
-        gray, uint16 depth), cast on the device."""
+    def _stage_inputs(self, gray, aux):
+        """Host->device copy of one frame (or a chunk's stack) in
+        camera-native dtypes, cast on the device: uint8 gray, the aux as
+        it comes (a uint8 right image, float depth), uint16 RGB-D depth
+        as its int16 bit view with the depth scale. ``aux`` None (mono)
+        passes a cached zero image. Returns (gray, aux, depth_scale)."""
         g = torch.from_numpy(np.ascontiguousarray(gray)).to(self.device)
-        if depth.dtype == np.uint16:
+        if aux is None:
+            return g, self._zero_aux(tuple(gray.shape)), None
+        aux = np.ascontiguousarray(aux)
+        if self.cfg.sensor == "rgbd" and aux.dtype == np.uint16:
             # uint16 travels as its int16 bit view and widens on the device
-            d = torch.from_numpy(np.ascontiguousarray(depth).view(np.int16))
+            d = torch.from_numpy(aux.view(np.int16))
             d = d.to(self.device).to(torch.int32) & 0xFFFF
             return g, d, self._scalar_consts()["depth_scale"]
-        return g, torch.from_numpy(np.ascontiguousarray(depth)).to(
-            self.device), None
+        return g, torch.from_numpy(aux).to(self.device), None
+
+    def _zero_aux(self, shape):
+        z = self._zero_aux_cache
+        if z is None or tuple(z.shape) != shape:
+            z = self._zero_aux_cache = torch.zeros(shape, device=self.device)
+        return z
 
     def _ref_kf_const(self):
         """Device int64 of the reference-KF index, rebuilt only when it
@@ -236,7 +268,8 @@ class Tracker:
             depth_th=dc["depth_th"], scale_factor=dc["sf"],
             min_inliers_track=dc["min_tr"],
             max_kf=cfg.capacity.local_ba_keyframes,
-            max_lm=cfg.capacity.local_ba_landmarks, n_levels=cfg.orb.n_levels)
+            max_lm=cfg.capacity.local_ba_landmarks, n_levels=cfg.orb.n_levels,
+            sensor=cfg.sensor)
 
     def _track_kwargs(self):
         """The fused steps' arguments: the stages' and the frame build's."""
@@ -279,14 +312,15 @@ class Tracker:
             self.device)
         return arr[..., :4], arr[..., 4] > 0
 
-    def step_images(self, gray: np.ndarray, depth: np.ndarray,
+    def step_images(self, gray: np.ndarray, aux: Optional[np.ndarray],
                     frame_id: int, timestamp: float, boxes=None,
                     box_active=None, dyn: Optional[dict] = None
                     ) -> TrackStats:
-        """Raw images in, one fused device step, one packed readback. Only
-        valid while tracking is OK; other states build the frame on the
-        host (initialization, LOST). With ``pipeline_depth`` > 0 the
-        frame's readback waits until that many newer frames were
+        """Raw images in, one fused device step, one packed readback.
+        ``aux`` is the depth map (RGB-D), the right image (stereo) or None
+        (mono). Only valid while tracking is OK; other states build the
+        frame on the host (initialization, LOST). With ``pipeline_depth``
+        > 0 the frame's readback waits until that many newer frames were
         dispatched, and the stats returned are the oldest frame's.
         ``boxes`` [B, 4] with ``box_active`` [B] quarantine keypoints;
         ``dyn`` {ref_fd, have_ref, box_status, seed, classify} switches to
@@ -296,12 +330,14 @@ class Tracker:
             # finalize the frames in flight (one may recover tracking),
             # then track this frame built on the host
             self.flush()
+            sensor = self.cfg.sensor
             return self.process(build_frame(
-                self.cfg, self.cam, gray, frame_id, timestamp, depth, boxes,
-                box_active))
-        dc = self._scalar_consts()
+                self.cfg, self.cam, gray, frame_id, timestamp,
+                depth_map=aux if sensor == "rgbd" else None,
+                right=aux if sensor == "stereo" else None, boxes=boxes,
+                box_valid=box_active))
         chain = self._chain_inputs()
-        g_arr, d_arr, depth_scale = self._stage_inputs(gray, depth)
+        g_arr, d_arr, depth_scale = self._stage_inputs(gray, aux)
         bx, ba = self._upload_boxes(boxes, box_active)
         if dyn is None:
             out = fused_track_step(
@@ -340,8 +376,9 @@ class Tracker:
     def step_images_chunk(self, frames, dyn: Optional[dict] = None
                           ) -> List[TrackStats]:
         """Temporal chunking: C consecutive frames in one fused call and
-        one [C, 28] packet readback. ``frames``: list of (gray, depth,
-        boxes, box_active, frame_id, timestamp). Frames chain on the
+        one [C, 28] packet readback. ``frames``: list of (gray, aux,
+        boxes, box_active, frame_id, timestamp), aux as ``step_images``
+        takes it. Frames chain on the
         device; the map snapshot is fixed for the chunk, so keyframe and
         LOST decisions lag. ``dyn`` {ref_fd, have_ref, box_status, seed}
         switches to the dynamic-scene chunk (classification on every
@@ -372,7 +409,8 @@ class Tracker:
             return sts
         C = len(frames)
         g_arr, d_arr, depth_scale = self._stage_inputs(
-            np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames]))
+            np.stack([f[0] for f in frames]),
+            None if frames[0][1] is None else np.stack([f[1] for f in frames]))
         bx, ba = self._upload_boxes([f[2] for f in frames],
                                     [f[3] for f in frames], C)
         if upload_first and not finalize_all():
@@ -532,7 +570,10 @@ class Tracker:
     # ------------------------------------------------------------------
     def _initialize(self, frame: Frame) -> TrackStats:
         """StereoInitialization: >= 300 features with depth; first keyframe
-        at identity with landmarks from all depth-valid keypoints."""
+        at identity with landmarks from all depth-valid keypoints. Mono
+        takes the two-view bootstrap."""
+        if self.cfg.sensor == "mono":
+            return self._initialize_mono(frame)
         d = frame.data
         n = int((d.valid & d.static_mask & (d.depth > 0)).sum())
         if n < 300:
@@ -561,6 +602,83 @@ class Tracker:
         return TrackStats("OK", is_keyframe=True, frame_id=frame.frame_id,
                           np_R=np.eye(3, dtype=np.float32),
                           np_t=np.zeros(3, np.float32))
+
+    def _initialize_mono(self, frame: Frame) -> TrackStats:
+        """MonocularInitialization: hold a reference frame with >= 100
+        features, then try the two-view bootstrap against each later
+        frame; too few matches restart from the current frame. On success
+        keyframe 0 is the reference at identity, keyframe 1 the current
+        frame, the good points become landmarks at the reference's slots,
+        bound at their matched slots in keyframe 1, and a BA over the two
+        views refines them (the reference's initial global BA)."""
+        cfg = self.cfg
+        d = frame.data
+        if int((d.valid & d.static_mask).sum()) < 100:
+            self._init_ref = None
+            return TrackStats("NOT_INITIALIZED")
+        ref = self._init_ref
+        if ref is None:
+            self._init_ref = frame
+            return TrackStats("NOT_INITIALIZED")
+        min_m = min(cfg.tracking.mono_init_min_matches,
+                    max(cfg.orb.n_features // 8, 40))
+        seed = cfg.seed + frame.frame_id
+        sample_fn = None if self.init_sample_fn is None else \
+            functools.partial(self.init_sample_fn, seed)
+        init = try_initialize(self.cam, ref.data, d, seed=seed,
+                              min_matches=min_m, sample_fn=sample_fn)
+        n_matches, ok = (int(v) for v in torch.stack(
+            [init.n_matches.to(torch.int64),
+             init.ok.to(torch.int64)]).cpu())
+        if n_matches < min_m:
+            self._init_ref = frame        # restart from this frame
+            return TrackStats("NOT_INITIALIZED")
+        if not ok:
+            return TrackStats("NOT_INITIALIZED")
+        dev = self.device
+        N = d.xy.shape[0]
+        no_obs = torch.full((N,), -1, dtype=torch.int32, device=dev)
+        r = ref.data
+        m = insert_keyframe(self.map, torch.eye(3, device=dev),
+                            torch.zeros(3, device=dev), ref.frame_id,
+                            ref.timestamp, r.xy, r.level, r.angle, r.desc,
+                            r.valid & r.static_mask, r.ur, r.depth, no_obs)
+        dist = torch.linalg.norm(init.points, dim=-1)
+        normal = init.points / torch.clamp(dist, min=1e-9)[:, None]
+        dmax = dist * self._sf ** r.level.to(torch.float32)
+        dmin = dmax / (self._sf ** (cfg.orb.n_levels - 1))
+        slots = torch.arange(N, dtype=torch.int32, device=dev)
+        m = add_landmarks(m, init.points, r.desc, normal, dmin, dmax,
+                          torch.zeros_like(slots), slots, init.good)
+        new_ids = m.kf_obs_lm[0]
+        # keyframe 1 observes them at the matched slots; masked writes go
+        # to an extra slot past the end, so no write can clobber slot 0
+        wr = init.good & (new_ids >= 0)
+        obs1 = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+        obs1[torch.where(wr, init.idx2, N)] = new_ids
+        m = insert_keyframe(m, init.R2, init.t2, frame.frame_id,
+                            frame.timestamp, d.xy, d.level, d.angle, d.desc,
+                            d.valid & d.static_mask, d.ur, d.depth,
+                            obs1[:N])
+        self.map = local_ba(
+            m, self.cam, torch.tensor(1, device=dev),
+            torch.tensor(self._sf, dtype=torch.float32, device=dev),
+            stereo=False, max_kf=4,
+            max_lm=cfg.capacity.local_ba_landmarks)
+        frame.R, frame.t = self.map.kf_R[1], self.map.kf_t[1]
+        frame.obs_lm = self.map.kf_obs_lm[1]
+        self.state = "OK"
+        self.n_kf_host = self.kf_seq = 2
+        self.last_kf_id = 1
+        self.frames_since_kf = 0
+        self.last_kf_inliers = int((frame.obs_lm >= 0).sum())
+        self._init_ref = None
+        if self.on_keyframe:
+            self.on_keyframe(0)
+            self.on_keyframe(1)
+        return TrackStats("OK", is_keyframe=True, frame_id=frame.frame_id,
+                          np_R=frame.R.cpu().numpy(),
+                          np_t=frame.t.cpu().numpy())
 
     def _relocalize_then_track(self, frame: Frame) -> TrackStats:
         """A frame while LOST: relocalize it; on success call the
@@ -649,6 +767,7 @@ class Tracker:
         self.n_kf_host = 0
         self.kf_seq = 0
         self._lost_streak = 0
+        self._init_ref = None
         self._pending.clear()
 
     # ------------------------------------------------------------------
@@ -769,12 +888,17 @@ class Tracker:
             torch.tensor(frame.frame_id, dtype=torch.int32, device=dev),
             torch.tensor(frame.timestamp, dtype=torch.float32, device=dev),
             frame.obs_lm, dc["depth_th"], dc["sf"], dc["kf_redundancy"],
-            n_levels=cfg.orb.n_levels, stereo=True,
+            n_levels=cfg.orb.n_levels, stereo=self.stereo_obs,
             max_kf=cfg.capacity.local_ba_keyframes,
             max_lm=cfg.capacity.local_ba_landmarks,
             do_ba=(self.kf_seq >= 3),
             do_refresh=((self.kf_seq - 1) % 4 == 3),
-            tri_neighbors=cfg.mapping.stereo_tri_neighbors)
+            tri_neighbors=(cfg.mapping.stereo_tri_neighbors
+                           if self.stereo_obs else 0))
+        if not self.stereo_obs:
+            # mono: new landmarks come from triangulation, not depth
+            self.map = create_new_landmarks(self.map, self.cam, k, self._sf,
+                                            n_levels=cfg.orb.n_levels)
         frame.obs_lm = self.map.kf_obs_lm[k]
         self.last_kf_id = k
         self.frames_since_kf = 0

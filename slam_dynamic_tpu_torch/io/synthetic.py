@@ -1,4 +1,8 @@
-"""Port copy of ``slam_dynamic_tpu/io/synthetic.py`` (host numpy, unchanged).
+"""Port copy of ``slam_dynamic_tpu/io/synthetic.py`` (host numpy). It
+renders the same images to the bit
+(``tests/test_torch_datasets.py``); the one change is that each wall's
+texture is computed only on the pixels where that wall is the nearest
+so far, which halves the time of a frame.
 
 Synthetic RGB-D / stereo sequence renderer with exact ground truth.
 
@@ -156,12 +160,15 @@ def _render_view(cfg, R_wc, t_wc, obj_center, rs):
         hit = (th > 0.05) & (th < best_t)
         if not hit.any():
             continue
-        pt = origin[None, None, :] + th[..., None] * dirs_w
+        # the texture only where this plane is the nearest so far: the
+        # same per-pixel arithmetic as over the whole image, so the same
+        # values, for a fraction of the work
+        th_hit = th[hit]
+        pt = origin[None, :] + th_hit[:, None] * dirs_w[hit]
         au, av = uv_axes[axis]
-        tex = _texture(pt[..., au], pt[..., av], cfg.seed * 31 + pi,
-                       cfg.texture_cells)
-        color = np.where(hit, tex, color)
-        best_t = np.where(hit, th, best_t)
+        color[hit] = _texture(pt[:, au], pt[:, av], cfg.seed * 31 + pi,
+                              cfg.texture_cells)
+        best_t[hit] = th_hit
 
     mask = np.zeros((H, W), bool)
     box = np.full(4, -1.0, np.float32)
@@ -176,11 +183,10 @@ def _render_view(cfg, R_wc, t_wc, obj_center, rs):
                   & (np.abs(pt[..., 1] - obj_center[1]) < half))
         hit = inside & (th < best_t)
         if hit.any():
-            tex = _texture(pt[..., 0] - obj_center[0],
-                           pt[..., 1] - obj_center[1],
-                           cfg.seed * 77 + 5, cfg.texture_cells * 3.0)
-            color = np.where(hit, tex, color)
-            best_t = np.where(hit, th, best_t)
+            color[hit] = _texture(pt[hit][:, 0] - obj_center[0],
+                                  pt[hit][:, 1] - obj_center[1],
+                                  cfg.seed * 77 + 5, cfg.texture_cells * 3.0)
+            best_t[hit] = th[hit]
             mask = hit
             ys_h, xs_h = np.nonzero(hit)
             box = np.array([xs_h.min(), ys_h.min(), xs_h.max(), ys_h.max()],

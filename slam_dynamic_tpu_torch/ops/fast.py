@@ -18,9 +18,10 @@ RING_OFFSETS = np.array(
 
 
 def _ring_stack(img: torch.Tensor) -> torch.Tensor:
-    """[16, H, W] ring neighbour values via rolls (borders masked later)."""
+    """[16, ..., H, W] ring neighbour values via rolls over the last two
+    dims (borders masked later)."""
     return torch.stack(
-        [torch.roll(img, (-int(dy), -int(dx)), dims=(0, 1))
+        [torch.roll(img, (-int(dy), -int(dx)), dims=(-2, -1))
          for dx, dy in RING_OFFSETS], dim=0)
 
 
@@ -34,16 +35,18 @@ def _contiguous9(mask16: torch.Tensor) -> torch.Tensor:
     return (r9 & 0xFFFF) != 0
 
 
-def _ring_weights(device):
-    return (torch.ones(16, dtype=torch.int64, device=device)
-            << torch.arange(16, dtype=torch.int64, device=device))[:, None, None]
+def _ring_weights(device, ndim: int):
+    w = torch.ones(16, dtype=torch.int64, device=device) \
+        << torch.arange(16, dtype=torch.int64, device=device)
+    return w.reshape((16,) + (1,) * ndim)
 
 
 def fast_response(img: torch.Tensor, threshold, ring=None):
-    """Segment test + response for every pixel.
+    """Segment test + response for every pixel of img [..., H, W].
 
-    Returns (corner [H,W] bool, score [H,W] float32), score being the arc
-    strength sum(max(|ring - p| - t, 0)) over the passing direction.
+    Returns (corner [..., H, W] bool, score [..., H, W] float32), score
+    being the arc strength sum(max(|ring - p| - t, 0)) over the passing
+    direction.
     """
     if ring is None:
         ring = _ring_stack(img)
@@ -51,7 +54,7 @@ def fast_response(img: torch.Tensor, threshold, ring=None):
     t = float(threshold)
     brighter = ring > p + t
     darker = ring < p - t
-    wts = _ring_weights(img.device)
+    wts = _ring_weights(img.device, img.dim())
     zero = torch.zeros((), dtype=torch.int64, device=img.device)
     mb = torch.where(brighter, wts, zero).sum(0)
     md = torch.where(darker, wts, zero).sum(0)

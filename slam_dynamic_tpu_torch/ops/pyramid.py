@@ -80,20 +80,20 @@ def _gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
 
 def gaussian_blur(image: torch.Tensor, ksize: int = 7,
                   sigma: float = 2.0) -> torch.Tensor:
-    """Separable Gaussian blur with reflect padding, [H, W] float32: the
-    same shifted-slice weighted sums, in the same order, as the reference."""
+    """Separable Gaussian blur with reflect padding of [..., H, W] float32
+    (each image of a stack alone): the same shifted-slice weighted sums,
+    in the same order, as the reference."""
     kern = [float(v) for v in _gaussian_kernel(ksize, sigma)]
     r = ksize // 2
-    h, w = image.shape
-    x = torch.nn.functional.pad(image[None, None], (0, 0, r, r),
-                                mode="reflect")[0, 0]
+    h, w = image.shape[-2:]
+    x = torch.nn.functional.pad(image.reshape(-1, 1, h, w), (0, 0, r, r),
+                                mode="reflect")
     out = 0
     for i in range(ksize):
-        out = out + kern[i] * x[i:i + h]
-    x = torch.nn.functional.pad(out[None, None], (r, r, 0, 0),
-                                mode="reflect")[0, 0]
+        out = out + kern[i] * x[..., i:i + h, :]
+    x = torch.nn.functional.pad(out, (r, r, 0, 0), mode="reflect")
     res = 0
     for i in range(ksize):
-        res = res + kern[i] * x[:, i:i + w]
-    return res
+        res = res + kern[i] * x[..., i:i + w]
+    return res.reshape(image.shape)
 

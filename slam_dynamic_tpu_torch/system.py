@@ -5,10 +5,12 @@ Port of ``slam_dynamic_tpu/system.py:29`` (``System.__init__``),
 ``_relocalize`` :152, the box state (``_maybe_detect`` :164 for
 precomputed boxes, ``_advance_boxes`` :188, ``_active_boxes`` :197),
 ``track_rgbd`` :206 (the fused path and the ``mask=`` path, :250-262),
-``track_chunk`` :271, ``_track_common`` :325, ``_dyn_args`` :335,
-``_dyn_after`` :377, ``object_states`` :443, the ``trajectory`` property
-and the trajectory writers. The port's System tracks and maps RGB-D
-frames, per frame or in temporal chunks; on every keyframe it looks for
+``track_stereo`` :250, ``track_chunk`` :271 (depth maps, right images,
+or None for mono), ``track_mono`` :315, ``_track_common`` :325,
+``_dyn_args`` :335, ``_dyn_after`` :377, ``object_states`` :443, the
+``trajectory`` property and the trajectory writers. The port's System
+tracks and maps RGB-D, stereo and monocular frames (``cfg.sensor``), per
+frame or in temporal chunks; on every keyframe it looks for
 a loop and verifies and corrects one it finds; a LOST frame is
 relocalized, and a relocalization corrects the drift it reveals. With
 the detector's boxes (``DetectorConfig.mode = "precomputed"``, the
@@ -16,7 +18,7 @@ library default) it runs the dynamic-object module: box tracking, the
 fused H/F reclassification of the boxes and the per-object 3D state, or
 with a dynamic-pixel ``mask`` the host-built frame's classification. Not
 ported yet: the post-loop global BA, localization-only mode, the online
-detector, other sensors and dense mapping.
+detector and dense mapping.
 """
 from __future__ import annotations
 
@@ -46,16 +48,13 @@ def intrinsics_from_config(cfg: SystemConfig, device=None) -> Intrinsics:
 
 
 class System:
-    """``System(cfg).track_rgbd(gray_u8, depth_u16, t, detections=)`` or
-    ``.track_chunk(grays, depths, ts, detections=)`` on the card by
-    default; ``device="cpu"`` runs the plain PyTorch path on the CPU."""
+    """``System(cfg).track_rgbd(gray_u8, depth_u16, t, detections=)``,
+    ``.track_stereo(left_u8, right_u8, t, detections=)``,
+    ``.track_mono(gray_u8, t)`` or ``.track_chunk(grays, auxs, ts,
+    detections=)`` on the card by default; ``device="cpu"`` runs the
+    plain PyTorch path on the CPU."""
 
     def __init__(self, cfg: SystemConfig, device=None):
-        if cfg.sensor != "rgbd":
-            raise NotImplementedError(
-                f"sensor {cfg.sensor!r}: only RGB-D is ported yet; stereo "
-                "and mono, with or without dynamic objects, are ROADMAP "
-                "item 17")
         if cfg.detector.mode == "online":
             raise NotImplementedError(
                 "the online detector (CenterNet) is not ported yet (ROADMAP "
@@ -131,7 +130,8 @@ class System:
 
     def _on_keyframe(self, k: int):
         self._ensure_voc()
-        m, result = self.loop.on_keyframe(self.tracker.map, k, True,
+        m, result = self.loop.on_keyframe(self.tracker.map, k,
+                                          self.tracker.stereo_obs,
                                           seq=self.tracker.kf_seq)
         self.tracker.map = m
         self.last_loop: LoopResult = result
@@ -145,7 +145,8 @@ class System:
         if self.loop is None:
             return
         m, result = self.loop.on_relocalization(
-            self.tracker.map, k_last, cand, True, seq=self.tracker.kf_seq)
+            self.tracker.map, k_last, cand, self.tracker.stereo_obs,
+            seq=self.tracker.kf_seq)
         if result.closed:
             self.tracker.map = m
             self.tracker._kf_pose_cache.clear()
@@ -240,29 +241,59 @@ class System:
         ``mask`` [H, W] (True = dynamic pixel) quarantines the keypoints on
         it; such a frame is built and tracked on the host
         (``_track_common``), its boxes classified before it is tracked."""
-        self._advance_boxes(detections)
-        boxes, bvalid = self._active_boxes()
         if mask is not None:
+            self._advance_boxes(detections)
+            boxes, bvalid = self._active_boxes()
             frame = build_frame(self.cfg, self.cam, gray, self.frame_id,
                                 timestamp, depth, boxes, bvalid, mask=mask)
             return self._track_common(frame)
+        return self._track_fused(gray, depth, timestamp, detections)
+
+    def track_stereo(self, left: np.ndarray, right: np.ndarray,
+                     timestamp: float,
+                     detections: Optional[np.ndarray] = None) -> TrackStats:
+        """Stereo entry (ref System::TrackStereo): rectified uint8 left
+        and right images in, one fused device step per tracked frame (two
+        extractions and the row-band matcher); ``detections`` as in
+        ``track_rgbd``."""
+        return self._track_fused(left, right, timestamp, detections)
+
+    def track_mono(self, gray: np.ndarray, timestamp: float) -> TrackStats:
+        """Monocular entry (ref System::TrackMonocular): the two-view
+        bootstrap, then one fused device step per tracked frame; with the
+        dynamic-object module on, the frame is built and tracked on the
+        host (``_track_common``)."""
+        if self.dynamics is None:
+            st = self.tracker.step_images(gray, None, self.frame_id,
+                                          timestamp)
+            self.frame_id += 1
+            return st
+        return self._track_common(build_frame(self.cfg, self.cam, gray,
+                                              self.frame_id, timestamp))
+
+    def _track_fused(self, gray, aux, timestamp: float, detections):
+        """One frame through the fused step (aux: the depth map or the
+        right image), with the dynamic-object module's boxes."""
+        self._advance_boxes(detections)
+        boxes, bvalid = self._active_boxes()
         dyn = self._dyn_args(timestamp, stride=True)
         if dyn is not None:
             # classification sees every box (a static box can turn
             # dynamic); the status gates quarantine inside the step
             boxes = self.boxes.boxes
             bvalid = np.ones(len(boxes), bool)
-        st = self.tracker.step_images(gray, depth, self.frame_id, timestamp,
+        st = self.tracker.step_images(gray, aux, self.frame_id, timestamp,
                                       boxes, bvalid, dyn=dyn)
         self._dyn_after(st, timestamp)
         self.frame_id += 1
         return st
 
-    def track_chunk(self, grays, depths, timestamps,
+    def track_chunk(self, grays, auxs, timestamps,
                     detections: Optional[list] = None) -> list:
-        """Temporal chunking: C consecutive RGB-D frames in one fused call
-        and one packed readback (``Tracker.step_images_chunk``).
-        ``detections``: one box array (or None) per frame; with the
+        """Temporal chunking: C consecutive frames in one fused call and
+        one packed readback (``Tracker.step_images_chunk``). ``auxs``:
+        the depth maps (RGB-D), the right images (stereo), or None
+        (mono). ``detections``: one box array (or None) per frame; with the
         dynamic-object module on, the chunk classifies its boxes against
         the reference frame picked at its start, and the streaks are
         updated from the verdicts of the chunk finalized in this call.
@@ -270,7 +301,9 @@ class System:
         lag up to a chunk."""
         frames = []
         first_id = self.frame_id
-        for j, (g, d, ts) in enumerate(zip(grays, depths, timestamps)):
+        if auxs is None:
+            auxs = [None] * len(grays)
+        for j, (g, d, ts) in enumerate(zip(grays, auxs, timestamps)):
             self._advance_boxes(detections[j] if detections is not None
                                 else None)
             boxes, bvalid = self._active_boxes()

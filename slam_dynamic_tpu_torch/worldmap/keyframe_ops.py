@@ -59,7 +59,7 @@ def bind_observations(m: MapState, kf_idx, slot_obs_lm) -> MapState:
     return m._replace(kf_obs_lm=obs, lm_n_obs=count_at(L + 1, flat)[:L])
 
 
-def _nanmedian_last(x: torch.Tensor) -> torch.Tensor:
+def nanmedian_last(x: torch.Tensor) -> torch.Tensor:
     """``jnp.nanmedian`` along the last dim: the mean of the two middle
     values of the non-NaN entries (NaN when there are none)."""
     n = (~torch.isnan(x)).sum(-1)
@@ -98,7 +98,7 @@ def refresh_landmark_descriptors(m: MapState) -> MapState:
     d = hamming_pairs(slot[:, :, None, :], slot[:, None, :, :])
     pair_ok = have[:, :, None] & have[:, None, :]
     df = torch.where(pair_ok, d.to(torch.float32), torch.nan)
-    med = _nanmedian_last(df)
+    med = nanmedian_last(df)
     med = torch.where(have & ~torch.isnan(med), med, torch.inf)
     bestj = torch.argmin(med, dim=1)
     best_desc = slot[torch.arange(L, device=dev), bestj]

@@ -94,8 +94,10 @@ def test_default_config_constructs_and_unported_parts_raise(world):
     with pytest.raises(NotImplementedError, match="item 18"):
         System(TC.SystemConfig(detector=TC.DetectorConfig(mode="online")),
                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        System(TC.SystemConfig(sensor="stereo"), device="cpu")
+    # stereo and mono are ported (item 17): their default configs build
+    for sensor in ("stereo", "mono"):
+        s = System(TC.SystemConfig(sensor=sensor), device="cpu")
+        assert s.tracker.stereo_obs == (sensor == "stereo")
     with pytest.raises(NotImplementedError, match="item 20"):
         System(TC.SystemConfig(loop=TC.LoopConfig(run_global_ba=True)),
                device="cpu")

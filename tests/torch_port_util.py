@@ -3,6 +3,14 @@
 Inputs are made with numpy from a seed and handed to both packages; JAX
 stays on the CPU (tests/conftest.py) and the port runs with
 ``device="cpu"``, where every kernel wrapper takes its plain version.
+
+Run as a script, it drives the JAX package (or, with ``--package
+port``, the port) on the CPU over the 640x480 worlds that
+``chip_smoke.py`` phases 10b and 11 drive through the port on the card,
+for the reference numbers beside the card's:
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_port_util.py \\
+        --world stereo-dynamic|mono [--frames N] [--package jax|port]
 """
 import dataclasses
 
@@ -12,6 +20,7 @@ import torch
 
 from slam_dynamic_tpu import config as JC
 from slam_dynamic_tpu_torch import config as TC
+from slam_dynamic_tpu_torch.bench import drive_per_frame, track_entry
 from slam_dynamic_tpu_torch.convert import frame_data_from_numpy
 from slam_dynamic_tpu_torch.frontend.frame import FrameData as TFrameData
 from slam_dynamic_tpu_torch.io.bench_world import detections
@@ -105,17 +114,20 @@ def record_detect(mp, cls, log):
 def run_chunked(system, world, n_frames, C=6):
     """``bench.py``'s chunked drive of either package's System: per frame
     until tracking is OK, then chunks of C, then the frames in flight.
-    ``world`` is (_, seq, gray8, depth16)."""
-    _, seq, gray8, depth16 = world
+    ``world`` is (_, seq, gray8, aux), aux the depth maps, the right
+    images (stereo) or None (mono)."""
+    _, seq, gray8, aux = world
+    track = track_entry(system)
     ts = [float(t) for t in seq.timestamps]
     stats, i = [], 0
     while system.tracker.state != "OK":
-        stats.append(system.track_rgbd(gray8[i], depth16[i], ts[i]))
+        stats.append(track(gray8[i], None if aux is None else aux[i], ts[i]))
         i += 1
     n_chunks = 0
     while i + C <= n_frames:
-        stats += system.track_chunk(gray8[i:i + C], depth16[i:i + C],
-                                    ts[i:i + C])
+        stats += system.track_chunk(gray8[i:i + C],
+                                    [None] * C if aux is None
+                                    else aux[i:i + C], ts[i:i + C])
         i += C
         n_chunks += 1
     while system.tracker._pending:     # flush, keeping every frame's stats
@@ -183,11 +195,15 @@ DYNAMIC_WORLDS = {
 }
 
 
-def dynamic_world(kind, n_frames):
+def dynamic_world(kind, n_frames, **synth):
+    """(scfg, seq, gray8, aux): aux the uint16 millimetre depth, or with
+    ``stereo=True`` among ``synth`` the uint8 right images."""
     scfg = SynthConfig(**{**SMALL, "n_frames": n_frames},
-                       **DYNAMIC_WORLDS[kind])
+                       **DYNAMIC_WORLDS[kind], **synth)
     seq = generate(scfg)
     gray8 = np.clip(seq.gray, 0, 255).astype(np.uint8)
+    if scfg.stereo:
+        return scfg, seq, gray8, np.clip(seq.right, 0, 255).astype(np.uint8)
     depth16 = np.clip(seq.depth * 1000.0, 0, 65535).astype(np.uint16)
     return scfg, seq, gray8, depth16
 
@@ -209,8 +225,10 @@ def run_dynamic(system, world, n_frames, chunk, use_boxes=True):
     tracking is OK and then in chunks of ``chunk``, then the frames in
     flight. Returns the stats, the box statuses after every call with the
     frames finalized in it (``history``: [(frame ids, statuses)]) and the
-    trajectory."""
-    _, seq, gray8, depth16 = world
+    trajectory. ``world`` as ``dynamic_world`` returns it; the System's
+    sensor picks its entry."""
+    _, seq, gray8, aux = world
+    track = track_entry(system)
     ts = [float(t) for t in seq.timestamps]
     stats, history, i = [], [], 0
 
@@ -222,12 +240,11 @@ def run_dynamic(system, world, n_frames, chunk, use_boxes=True):
         history.append(([s.frame_id for s in new],
                         tuple(int(x) for x in system.boxes.status)))
     while i < n_frames and (chunk == 1 or system.tracker.state != "OK"):
-        record([system.track_rgbd(gray8[i], depth16[i], ts[i],
-                                  detections=boxes(i))])
+        record([track(gray8[i], aux[i], ts[i], detections=boxes(i))])
         i += 1
     while i + chunk <= n_frames and chunk > 1:
         record(system.track_chunk(
-            gray8[i:i + chunk], depth16[i:i + chunk], ts[i:i + chunk],
+            gray8[i:i + chunk], aux[i:i + chunk], ts[i:i + chunk],
             detections=[boxes(i + j) for j in range(chunk)]))
         i += chunk
     tail = []
@@ -364,3 +381,98 @@ def check_orbit_closure(chunk):
     ate_t = ate_rmse(et, seq.t_wc[:len(et)], align=False)
     assert ate_t < 0.15 and abs(ate_t - ate_j) <= max(1e-3, 0.2 * ate_j), \
         (ate_t, ate_j)
+
+
+# --- the JAX package on the 640x480 worlds of chip_smoke.py's phases 10b
+# and 11 (python tests/torch_port_util.py, below) ---
+
+def jax_config(cfg):
+    """Either package's ``SystemConfig`` as the JAX package's, field for
+    field."""
+    import typing
+
+    def build(cls, value):
+        hints = typing.get_type_hints(cls, vars(JC))
+        kw = {}
+        for f in dataclasses.fields(cls):
+            v = value[f.name]
+            if dataclasses.is_dataclass(hints[f.name]):
+                v = build(hints[f.name], v)
+            elif isinstance(v, list):
+                v = tuple(v)
+            kw[f.name] = v
+        return cls(**kw)
+    return build(JC.SystemConfig, dataclasses.asdict(cfg))
+
+
+def jax_init_samples(seed, ok):
+    """The H and F minimal sets JAX's mono bootstrap draws from ``seed``
+    (``jax.random.split(PRNGKey(seed))``) given the port's match mask
+    ``ok``: the port Tracker's ``init_sample_fn``."""
+    import jax
+    import jax.numpy as jnp
+    from slam_dynamic_tpu.ops import ransac as jr
+    kh, kf = jax.random.split(jax.random.PRNGKey(seed))
+    m = jnp.asarray(ok.cpu().numpy())
+    P = ok.shape[0]
+    return tuple(torch.from_numpy(np.array(
+        jr._sample_indices(key, 256, k, P, m))).to(ok.device)
+        for key, k in ((kh, 4), (kf, 8)))
+
+
+def _reference(argv=None):
+    """The JAX package (or the port), on the CPU, on the worlds chip_smoke.py
+    drives per frame: ``--world stereo-dynamic`` (phase 10b: the stereo
+    pair of the moving-object world, ``track_stereo(detections=)``,
+    classification on every 2nd frame, one frame in flight) or ``--world
+    mono`` (phase 11: ``track_mono``). Prints one JSON line: LOST and
+    not-OK frames, the first OK frame, the first frame with a box
+    confirmed dynamic, and the ATE in metres (Sim3-aligned for mono, as
+    chip_smoke.py reports it)."""
+    import argparse
+    import json
+    import time
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from slam_dynamic_tpu.io.evo import ate_rmse
+    from slam_dynamic_tpu.system import System
+    from slam_dynamic_tpu_torch.io.bench_world import bench_world
+    from slam_dynamic_tpu_torch.system import System as PortSystem
+
+    ap = argparse.ArgumentParser(description=_reference.__doc__)
+    ap.add_argument("--world", choices=("stereo-dynamic", "mono"),
+                    required=True)
+    ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--package", choices=("jax", "port"), default="jax")
+    ap.add_argument("--jax-samples", action="store_true",
+                    help="the port's mono bootstrap draws JAX's samples")
+    args = ap.parse_args(argv)
+    dynamic = args.world == "stereo-dynamic"
+    n = args.frames or (30 if dynamic else 50)
+    world = bench_world(n, dynamic=dynamic,
+                        sensor="stereo" if dynamic else "mono")
+    cfg = world[3]
+    if dynamic:
+        cfg = cfg.replace(
+            tracking=dataclasses.replace(cfg.tracking, pipeline_depth=1),
+            dynamic=dataclasses.replace(cfg.dynamic, classify_every=2))
+    t0 = time.perf_counter()
+    system = System(jax_config(cfg)) if args.package == "jax" else \
+        PortSystem(cfg, device="cpu")
+    if args.jax_samples:
+        system.tracker.init_sample_fn = jax_init_samples
+    r = drive_per_frame(system, world, n, dynamic)
+    seq, est = world[0], r["est"]
+    i0 = n - len(est)
+    ate = ate_rmse(est, seq.t_wc[i0:i0 + len(est)], with_scale=not dynamic)
+    print(json.dumps({
+        "package": args.package, "world": args.world, "frames": n,
+        "lost": r["states"].count("LOST"),
+        "not_ok": sum(s != "OK" for s in r["states"]),
+        "first_ok": r["first_ok"], "first_dynamic": r["first_dynamic"],
+        "ate_m": float(ate), "cpu_s": round(time.perf_counter() - t0, 1)}))
+
+
+if __name__ == "__main__":
+    _reference()
