@@ -103,7 +103,29 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      90% of the frames from there OK, the Sim3-aligned ATE under 0.15 m,
      beside the JAX package's on the CPU; K1 and K2 held bit-equal on
      every call of the first 6 frames (the bootstrap's [2048, 2048]
-     matches and the first tracked frames).
+     matches and the first tracked frames);
+  12. the online detector: the port's CenterNet on the card against the
+     same network on the CPU on 6 frames of the moving-object world at
+     640x480 (the maps' largest differences, within 1e-3; the detections
+     of the two sides paired by class and box, those that clear the
+     threshold by 1e-3 present on both sides with boxes within 1e-3 px;
+     those nearer it and the threshold flips, the detections found on
+     one side only, counted), its device time and kernel launches per
+     detect; then System.track_chunk at C = 6, one chunk in flight, on
+     25 frames of that world with no boxes passed, so the System's own
+     detector finds them: no LOST frame, a detection every frame, boxes
+     tracked and the object confirmed dynamic, the ATE (under 30 mm)
+     beside the JAX package's and the port's on the CPU; K1 and K2 held
+     bit-equal on every call of the first 6 frames;
+  13. the dataset CLI in process on the card, three paths, each with its
+     own launch counts (set to 0 just before it) and K1 and K2 held
+     bit-equal on every call it made: ``python -m
+     slam_dynamic_tpu_torch.io.run --dataset synthetic --frames 20 --ply
+     --save-map`` (the JAX CLI's files, no LOST frame, the dense map's
+     points, ATE under 30 mm), then ``--load-map --skip 10`` (LOST after
+     the load, then every frame OK: relocalized on the first), then a
+     System loaded from the checkpoint in localization-only mode over 8
+     frames (all OK, no keyframe added).
 
 Kernel, plain and library times are device times (CUDA-graph replay
 between CUDA events, slam_dynamic_tpu_torch/kernel_bench.py), each beside
@@ -111,7 +133,8 @@ the least time the card could take for the same work; K2's row takes
 its times from phase 6's inputs. It then prints the wall time of each
 phase, the kernel table as one JSON line (``launches`` is phase 5's
 count, the main path's; ``launches_per_phase`` adds phases 3, 6, 7, 8,
-8b, 9, 10, 10b and 11) and, last, the result line. Any failed check
+8b, 9, 10, 10b, 11, 12 and the three paths of 13) and, last, the result
+line. Any failed check
 raises, and a hang ends in a traceback and a nonzero exit after 1100 s.
 """
 import contextlib
@@ -158,6 +181,27 @@ JAX_STEREO_CHUNK_ATE_MM = 27.55
 JAX_STEREO_DYN = (9.024, 9)
 JAX_MONO = (2, 23.016)
 JAX_MONO_PORT_CPU_MM = 22.962
+# phase 12: the online detector's card-against-CPU frames, the chunked
+# System's frames (the first, then four chunks) and the maps' tolerance
+# (heat and offset absolute, size relative: it is exp(.) * 8 pixels);
+# the detections that clear the threshold by DETECT_MARGIN must agree,
+# their boxes within BOX_TOL px
+ONLINE_DETECT_FRAMES = 6
+ONLINE_FRAMES = 25
+MAP_TOL = 1e-3
+DETECT_MARGIN = 1e-3
+BOX_TOL = 1e-3
+# The JAX package and the port on the CPU on phase 12's world:
+# ``JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_port_util.py --world
+# online [--package port]``: ATE in mm, the first frame of the call after
+# which a box is confirmed dynamic, the most boxes tracked at once.
+JAX_ONLINE = (6.923, 13, 12)
+PORT_CPU_ONLINE = (6.918, 13, 12)
+# phase 13: the CLI's synthetic run, the frame it resumes at, and the
+# frames tracked in localization-only mode after a load_map
+CLI_FRAMES = 20
+CLI_SKIP = 10
+LOCALIZE_FRAMES = 8
 
 
 def log(msg):
@@ -1017,7 +1061,8 @@ def recording_frames(gm, hm, kb, rec):
     return ctx
 
 
-def hold_recorded(gm, hm, rec, what, k1_err, k2_err):
+def hold_recorded(gm, hm, rec, what, k1_err, k2_err,
+                  scope=f"the first {RECORD_FRAMES} frames"):
     """K1 and K2 bit-equal with their plain versions on every call that
     ``recording_frames`` kept, each launch of those frames kept once."""
     n1, n2 = len(rec["k1"]), len(rec["k2"])
@@ -1028,8 +1073,8 @@ def hold_recorded(gm, hm, rec, what, k1_err, k2_err):
     k2_err = hold_k2(hm, rec["k2"], what, k2_err)
     shapes = sorted({(int(a.shape[0]), int(b.shape[0]))
                      for a, b in rec["k2"]})
-    log(f"  K1 on the {n1} calls and K2 on the {n2} calls of the first "
-        f"{RECORD_FRAMES} frames (K2 shapes {shapes}): bit-equal with plain")
+    log(f"  K1 on the {n1} calls and K2 on the {n2} calls of {scope} (K2 "
+        f"shapes {shapes}): bit-equal with plain")
     return k1_err, k2_err
 
 
@@ -1120,6 +1165,314 @@ def phase_mono(gm, hm, kb, k1_err, k2_err):
                                      k1_err, k2_err))
 
 
+def _detector_profile(det, img) -> tuple:
+    """One ``det.detect(img)`` under torch.profiler: its kernel launches
+    (the host's cudaLaunchKernel and cuLaunchKernel calls, either form),
+    the kernels the card ran and their summed device time in ms."""
+    import torch
+    from torch.autograd import DeviceType
+    det.detect(img)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        det.detect(img)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                "cuLaunchKernel", "cuLaunchKernelEx"))
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    return launches, len(kernels), busy_ms
+
+
+def _detect_ms(det, img, reps: int = 20) -> float:
+    """Device ms of one detect, between CUDA events around ``reps`` calls
+    (the gaps between its launches are in it)."""
+    import torch
+    det.detect(img)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        det.detect(img)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def _valid_detections(det):
+    v = det.valid.cpu().numpy()
+    return (det.boxes.cpu().numpy()[v], det.scores.cpu().numpy()[v],
+            det.classes.cpu().numpy()[v])
+
+
+def pair_detections(a, b, within: float = 0.5) -> tuple:
+    """The detections of two sides, each (boxes, scores, classes), paired
+    greedily by class and box (the nearest box of the same class within
+    ``within`` px on every coordinate): returns the pairs (i, j) and the
+    indices found on side a only and on side b only."""
+    import numpy as np
+    pairs, taken = [], set()
+    for i in range(len(a[0])):
+        d = np.where(b[2] == a[2][i],
+                     np.abs(b[0] - a[0][i]).max(axis=1, initial=0), np.inf)
+        for j in np.argsort(d, kind="stable"):
+            if d[j] > within:
+                break
+            if j not in taken:
+                taken.add(int(j))
+                pairs.append((i, int(j)))
+                break
+    only_a = sorted(set(range(len(a[0]))) - {i for i, _ in pairs})
+    only_b = sorted(set(range(len(b[0]))) - taken)
+    return pairs, only_a, only_b
+
+
+def check_detector_on_card(frames):
+    """The card's Detector against the CPU's on the same frames: the
+    maps' largest differences; the detections paired by class and box,
+    those that clear the threshold by DETECT_MARGIN on either side found
+    on both with boxes within BOX_TOL px, the ones nearer it counted and
+    the threshold flips (detections on one side only) counted; then its
+    device time and launches per detect."""
+    import numpy as np
+    import torch
+    from slam_dynamic_tpu_torch.config import DetectorConfig
+    from slam_dynamic_tpu_torch.models.detector import (
+        Detector, default_detector_weights)
+    weights = default_detector_weights()
+    if weights is None:
+        raise AssertionError("the detector's weights are missing")
+    dc = DetectorConfig(mode="online")
+    H, W = frames[0].shape
+    gpu = Detector.from_npz(dc, H, W, weights)        # the card
+    cpu = Detector.from_npz(dc, H, W, weights, device="cpu")
+    thr = dc.conf_threshold
+    err = [0.0, 0.0, 0.0]
+    near = flips = kept = 0
+    box_err = 0.0
+    for img in frames:
+        for k, (a, b) in enumerate(zip(gpu.maps(img), cpu.maps(img))):
+            d = (a.cpu() - b).abs()
+            if k == 1:
+                d = d / b.abs().clamp(min=1.0)
+            err[k] = max(err[k], float(d.max()))
+        g, c = (_valid_detections(d.detect(img)) for d in (gpu, cpu))
+        near += int((np.abs(g[1] - thr) < DETECT_MARGIN).sum()
+                    + (np.abs(c[1] - thr) < DETECT_MARGIN).sum())
+        pairs, only_g, only_c = pair_detections(g, c)
+        flips += len(only_g) + len(only_c)
+        clear = [g[1][i] > thr + DETECT_MARGIN for i in only_g] + \
+            [c[1][j] > thr + DETECT_MARGIN for j in only_c]
+        held = [(i, j) for i, j in pairs
+                if max(g[1][i], c[1][j]) > thr + DETECT_MARGIN]
+        kept += len(held)
+        for i, j in held:
+            box_err = max(box_err, float(np.abs(g[0][i] - c[0][j]).max()))
+        if any(clear) or box_err > BOX_TOL:
+            raise AssertionError(
+                "detector: the card's detections above the margin differ "
+                f"from the CPU's (on one side only: {sum(clear)}; largest "
+                f"box difference {box_err:.3g} px)")
+    img_dev = torch.from_numpy(frames[0]).cuda().to(torch.float32)
+    ms = _detect_ms(gpu, img_dev)
+    launches, n_kernels, busy_ms = _detector_profile(gpu, img_dev)
+    log(f"  detector on the card against the CPU, {len(frames)} frames "
+        f"{W}x{H}: largest map difference heat {err[0]:.3g}, size "
+        f"{err[1]:.3g} (relative), offset {err[2]:.3g} (tolerance "
+        f"{MAP_TOL}); {kept} detections clear the threshold by "
+        f"{DETECT_MARGIN}, all on both sides, boxes within {box_err:.3g} px "
+        f"(tolerance {BOX_TOL}); {near} within {DETECT_MARGIN} of it; "
+        f"threshold flips (detections on one side only) {flips}; per "
+        f"detect {ms:.4f} ms (between CUDA events around 20 calls, launch "
+        f"gaps in), {launches} kernel launches, {n_kernels} kernels on the "
+        f"card busy {busy_ms:.4f} ms (torch.profiler)")
+    if max(err) > MAP_TOL:
+        raise AssertionError("detector maps: card and CPU disagree")
+
+
+def parity_driver():
+    """``tests/port_drive.py``, the driver the CPU parity tests run (it
+    imports no JAX), loaded by path."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "port_drive.py")
+    spec = importlib.util.spec_from_file_location("port_drive", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_online(gm, hm, kb, k1_err, k2_err):
+    """Phase 12: the online detector on the card against the CPU, then
+    the moving-object world chunked with boxes from the System's own
+    detector; K1 and K2 held on the calls of the first 6 frames."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from slam_dynamic_tpu_torch.config import DetectorConfig
+    from slam_dynamic_tpu_torch.io.bench_world import bench_world
+    from slam_dynamic_tpu_torch.io.evo import ate_rmse
+    from slam_dynamic_tpu_torch.system import System
+
+    world = bench_world(ONLINE_FRAMES, SEED, dynamic=True)
+    seq, gray8, depth, cfg = world
+    check_detector_on_card(list(gray8[:ONLINE_DETECT_FRAMES]))
+    cfg = cfg.replace(
+        detector=DetectorConfig(mode="online"),
+        tracking=dataclasses.replace(cfg.tracking, pipeline_depth=1))
+    system = System(cfg)
+    n_detect = [0]
+    detect = system.detector.detect
+
+    def counting(image):
+        n_detect[0] += 1
+        return detect(image)
+    system.detector.detect = counting
+    rec = {"k1": [], "k2": [], "launched": [0, 0]}
+    _zero_launches(gm, hm)
+    r = parity_driver().run_dynamic(
+        system, (cfg, seq, gray8, depth), ONLINE_FRAMES, CHUNK,
+        use_boxes=False, sync=torch.cuda.synchronize,
+        call_ctx=recording_frames(gm, hm, kb, rec))
+    launches = _launches(gm, hm)
+    states = [s.state for s in r["stats"]]
+    est = r["est"]
+    ate_mm = ate_rmse(est, seq.t_wc[:len(est)]) * 1e3
+    log(f"phase 12 System.track_chunk with the online detector, moving "
+        f"object 640x480 x {r['n_frames']} frames, C = {CHUNK}, one chunk "
+        f"in flight: chunk p50 {np.median(r['times'][1:]) * 1e3:.1f} ms, "
+        f"LOST frames {states.count('LOST')} of {len(states)}, detector "
+        f"calls {n_detect[0]}, boxes tracked at most {r['max_boxes']} at "
+        f"once, box status {tuple(int(x) for x in system.boxes.status)} "
+        f"(2 from the call at frame {r['first_dynamic']}), ATE "
+        f"{ate_mm:.3f} mm (on the CPU, ATE mm, first dynamic, boxes: the "
+        f"JAX package {JAX_ONLINE}, the port {PORT_CPU_ONLINE}), launches "
+        f"{launches}")
+    if states.count("OK") != len(states) or r["n_frames"] != ONLINE_FRAMES \
+            or n_detect[0] != ONLINE_FRAMES or not r["max_boxes"] \
+            or r["first_dynamic"] is None or ate_mm >= 30.0 \
+            or min(launches.values()) <= 0:
+        raise AssertionError("online detector phase failed its checks")
+    return (launches, *hold_recorded(gm, hm, rec, "phase 12's frames",
+                                     k1_err, k2_err))
+
+
+def _run_cli(args) -> list:
+    """``python -m slam_dynamic_tpu_torch.io.run`` in process: the JSON
+    lines it printed (standard output also goes to ours)."""
+    import io
+    from slam_dynamic_tpu_torch.io import run as cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+    text = out.getvalue()
+    sys.stdout.write("".join(f"  cli: {x}\n" for x in text.splitlines()))
+    if rc != 0:
+        raise AssertionError(f"the CLI exited {rc}")
+    return [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+
+
+def _ply_points(path) -> int:
+    with open(path) as f:
+        for line in f:
+            if line.startswith("element vertex"):
+                return int(line.split()[-1])
+    raise AssertionError(f"{path}: no vertex count")
+
+
+def recorded_run(gm, hm, kb, fn):
+    """``fn()`` with the launch counts set to 0 just before it and read
+    just after, and a copy of every K1 and K2 call's inputs kept: returns
+    (its result, the launches, the record for ``hold_recorded``)."""
+    rec = {"k1": [], "k2": []}
+    _zero_launches(gm, hm)
+    with kb.recording_k1(rec["k1"]), kb.recording_k2(rec["k2"], every=True):
+        out = fn()
+    rec["launched"] = [gm.launches, hm.launches]
+    return out, _launches(gm, hm), rec
+
+
+def phase_cli(gm, hm, kb, k1_err, k2_err):
+    """Phase 13: three paths, each with its own launch counts and K1 and
+    K2 held bit-equal on every call it made: the dataset CLI in process on
+    the card (the synthetic world with the dense map and the checkpoint),
+    the CLI resumed from the checkpoint, and a System loaded from it in
+    localization-only mode."""
+    import tempfile
+    from slam_dynamic_tpu_torch.io import run as cli
+    from slam_dynamic_tpu_torch.io.synthetic import SynthConfig, generate
+    from slam_dynamic_tpu_torch.system import System
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "map.npz")
+        first, resumed = (os.path.join(d, x) for x in ("first", "resumed"))
+        base = ["--dataset", "synthetic", "--frames", str(CLI_FRAMES),
+                "--log-frames"]
+        lines, launches["cli"], rec = recorded_run(
+            gm, hm, kb, lambda: _run_cli(base + ["--ply", "--save-map", ck,
+                                                 "--out", first]))
+        s1 = lines[-1]
+        k1_err, k2_err = hold_recorded(gm, hm, rec, "phase 13's first run",
+                                       k1_err, k2_err, "the first CLI run")
+        n_dense = _ply_points(os.path.join(first, "map.ply"))
+        files = sorted(os.listdir(first))
+        lines, launches["cli_resumed"], rec = recorded_run(
+            gm, hm, kb, lambda: _run_cli(base + [
+                "--skip", str(CLI_SKIP), "--load-map", ck, "--out",
+                resumed]))
+        loaded, s2 = lines[0], lines[-1]
+        k1_err, k2_err = hold_recorded(gm, hm, rec, "phase 13's resumed run",
+                                       k1_err, k2_err, "the resumed CLI run")
+        with open(os.path.join(resumed, "frames.jsonl")) as f:
+            rows = [json.loads(x) for x in f]
+        # localization-only mode on the loaded map
+        args = cli._parser().parse_args(base)
+        system = System(cli.build_config(args))
+        system.load_map(ck)
+        n_kf = system.tracker.n_kf_host
+        system.activate_localization_mode()
+        seq = generate(SynthConfig(n_frames=CLI_FRAMES))
+        loc, launches["localization"], rec = recorded_run(
+            gm, hm, kb, lambda: [
+                system.track_rgbd(seq.gray[i], seq.depth[i],
+                                  float(seq.timestamps[i])).state
+                for i in range(CLI_SKIP, CLI_SKIP + LOCALIZE_FRAMES)])
+        loc_kf = system.tracker.n_kf_host
+        k1_err, k2_err = hold_recorded(
+            gm, hm, rec, "phase 13's localization frames", k1_err, k2_err,
+            "the localization-only frames")
+    log(f"phase 13 the CLI (python -m slam_dynamic_tpu_torch.io.run) on the "
+        f"card, synthetic 640x480 x {CLI_FRAMES} frames with --ply "
+        f"--save-map: {s1['frames']} frames, LOST {s1['lost']}, keyframes "
+        f"{s1['keyframes']}, landmarks {s1['landmarks']}, dense map "
+        f"{n_dense} points, ATE {s1.get('ate_m', float('nan')) * 1e3:.3f} "
+        f"mm, {s1['fps']:.2f} fps; files {files}; launches {launches['cli']}")
+    log(f"  resumed with --load-map --skip {CLI_SKIP}: state after the load "
+        f"{loaded['state']} ({loaded['keyframes']} keyframes), then "
+        f"{[r['state'] for r in rows]}, LOST {s2['lost']}, ATE "
+        f"{s2.get('ate_m', float('nan')) * 1e3:.3f} mm; launches "
+        f"{launches['cli_resumed']}")
+    log(f"  localization-only mode on the loaded map, {LOCALIZE_FRAMES} "
+        f"frames: {loc}, keyframes {n_kf} -> {loc_kf}; launches "
+        f"{launches['localization']}")
+    expect = ["CameraTrajectory_kitti.txt", "FrameTrajectory.txt",
+              "KeyFrameTrajectory.txt", "frames.jsonl", "groundtruth.txt",
+              "map.pcd", "map.ply", "summary.json"]
+    if files != expect or s1["lost"] or s1["ate_m"] >= 0.03 \
+            or n_dense < 1000 or loaded["state"] != "LOST" \
+            or s2["lost"] or len(rows) != CLI_FRAMES - CLI_SKIP \
+            or any(r["state"] != "OK" for r in rows) \
+            or s2["ate_m"] >= 0.03 or loc != ["OK"] * LOCALIZE_FRAMES \
+            or loc_kf != n_kf \
+            or min(min(x.values()) for x in launches.values()) <= 0:
+        raise AssertionError("CLI phase failed its checks")
+    return launches, k1_err, k2_err
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1180,6 +1533,8 @@ def main():
     stereo_dyn_launches, *errs = timed("10b", phase_stereo_dynamic_frame,
                                        gm, hm, kb, *errs)
     mono_launches, *errs = timed("11", phase_mono, gm, hm, kb, *errs)
+    online_launches, *errs = timed("12", phase_online, gm, hm, kb, *errs)
+    cli_launches, *errs = timed("13", phase_cli, gm, hm, kb, *errs)
     k1_row["max_abs_err"], k2_row["max_abs_err"] = errs
     log("wall time per phase, s (host clock, world rendering included): "
         + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
@@ -1197,7 +1552,9 @@ def main():
             "relocalization": reloc_launches[r["name"]],
             "track_chunk_stereo": stereo_launches[r["name"]],
             "track_stereo_dynamic": stereo_dyn_launches[r["name"]],
-            "track_mono": mono_launches[r["name"]]}
+            "track_mono": mono_launches[r["name"]],
+            "track_chunk_online": online_launches[r["name"]],
+            **{k: v[r["name"]] for k, v in cli_launches.items()}}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_per_phase"]

@@ -107,3 +107,53 @@ def config_from_dict(d: dict) -> cfg_mod.SystemConfig:
     """A ``SystemConfig`` of the port from ``dataclasses.asdict`` output
     (of this package's or the JAX package's config)."""
     return _build(cfg_mod.SystemConfig, d)
+
+
+# the detector's flax module names -> the port's CenterDetector modules
+_DETECTOR_HEADS = {"Conv_0": "heat", "Conv_1": "size", "Conv_2": "off"}
+_DETECTOR_BLOCKS = 7
+
+
+def detector_params_from_numpy(tree: dict) -> dict:
+    """The JAX detector's params tree (``{"params": {"ConvBlock_i":
+    {"Conv_0": {"kernel"}, "GroupNorm_0": {"scale", "bias"}}, "Conv_j":
+    {"kernel", "bias"}}}``, numpy leaves) -> a state dict of the port's
+    ``models.detector.CenterDetector``; kernels HWIO -> OIHW."""
+    p = tree.get("params", tree)
+
+    def conv(k):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(k, np.float32).transpose(3, 2, 0, 1)))
+
+    def vec(v):
+        return torch.from_numpy(np.array(v, np.float32))
+    sd = {}
+    for i in range(_DETECTOR_BLOCKS):
+        b = p[f"ConvBlock_{i}"]
+        sd[f"blocks.{i}.conv.weight"] = conv(b["Conv_0"]["kernel"])
+        sd[f"blocks.{i}.norm.weight"] = vec(b["GroupNorm_0"]["scale"])
+        sd[f"blocks.{i}.norm.bias"] = vec(b["GroupNorm_0"]["bias"])
+    for flax_name, name in _DETECTOR_HEADS.items():
+        sd[f"{name}.weight"] = conv(p[flax_name]["kernel"])
+        sd[f"{name}.bias"] = vec(p[flax_name]["bias"])
+    return sd
+
+
+def detector_params_to_numpy(sd: dict) -> dict:
+    """The inverse: a CenterDetector state dict -> the JAX params tree."""
+    def conv(t):
+        return np.ascontiguousarray(
+            t.detach().cpu().numpy().transpose(2, 3, 1, 0))
+
+    def vec(t):
+        return t.detach().cpu().numpy().copy()
+    p = {}
+    for i in range(_DETECTOR_BLOCKS):
+        p[f"ConvBlock_{i}"] = {
+            "Conv_0": {"kernel": conv(sd[f"blocks.{i}.conv.weight"])},
+            "GroupNorm_0": {"bias": vec(sd[f"blocks.{i}.norm.bias"]),
+                            "scale": vec(sd[f"blocks.{i}.norm.weight"])}}
+    for flax_name, name in _DETECTOR_HEADS.items():
+        p[flax_name] = {"bias": vec(sd[f"{name}.bias"]),
+                        "kernel": conv(sd[f"{name}.weight"])}
+    return {"params": p}

@@ -30,7 +30,15 @@ Keyframe frames add one mapping-stage call and the keyframe hook (loop
 closing, wired by the System); a LOST frame calls the relocalizer and,
 on success, the drift-correction hook.
 
-Not ported yet: the adaptive pipeline depth and localization-only mode.
+Localization-only mode (``localization_only``, the reference's
+ActivateLocalizationMode) tracks against a frozen map: no keyframe is
+made (:1046), a relocalization corrects no drift (:852) and no loss
+resets the map (:866, :878); while the local map yields fewer than
+``vo_mode_inliers`` inliers (``vo_mode``, the reference's mbVO) each
+tracked frame is also relocalized and the relocalized pose preferred
+(:1026-1045), per frame and in a chunk's finalize alike.
+
+Not ported yet: the adaptive pipeline depth.
 States: NOT_INITIALIZED -> OK <-> LOST.
 """
 from __future__ import annotations
@@ -182,6 +190,11 @@ class Tracker:
         # tests feed JAX's)
         self.init_sample_fn: Optional[Callable] = None
         self._zero_aux_cache = None
+        # localization-only mode: track against the map, make no keyframe
+        self.localization_only = False
+        # its VO mode: set after a frame with few local-map inliers; the
+        # next frame is also relocalized and the relocalization preferred
+        self.vo_mode = False
 
     @property
     def stereo_obs(self) -> bool:
@@ -696,18 +709,21 @@ class Tracker:
                 self.velocity = None
                 self._lost_streak = 0
                 if self.on_reloc is not None and cand >= 0 \
-                        and self.last_kf_id >= 0:
+                        and self.last_kf_id >= 0 \
+                        and not self.localization_only:
                     self.on_reloc(self.last_kf_id, cand)
                 self.last_frame = frame
                 self.state = "OK"
                 return self._track(frame)
+        # a frozen map (localization-only mode) is never reset
         n_feat = int(frame.data.valid.sum())
-        if self.n_kf_host <= 5 and n_feat >= 50:
+        resettable = n_feat >= 50 and not self.localization_only
+        if self.n_kf_host <= 5 and resettable:
             self.reset()
             return TrackStats("NOT_INITIALIZED")
         self._lost_streak += 1
         max_lost = self.cfg.tracking.max_lost_frames
-        if max_lost > 0 and self._lost_streak >= max_lost and n_feat >= 50:
+        if max_lost > 0 and self._lost_streak >= max_lost and resettable:
             self.reset()
             return TrackStats("NOT_INITIALIZED")
         frame.R, frame.t = None, None
@@ -842,11 +858,34 @@ class Tracker:
         st = TrackStats("OK", n_inliers_mm=n_mm, n_inliers_map=n_map,
                         frame_id=frame.frame_id, np_R=np_R, np_t=np_t,
                         **tail)
-        if self._need_keyframe_counts(n_map, close_bound, close_unbound):
+        if self.localization_only:
+            self._vo_arbitrate(frame, st, n_map)
+        elif self._need_keyframe_counts(n_map, close_bound, close_unbound):
             before = self.kf_seq
             self._create_keyframe(frame, n_map)
             st.is_keyframe = self.kf_seq > before
         return st
+
+    def _vo_arbitrate(self, frame: Frame, st: TrackStats, n_map: int):
+        """Localization-only mode's two hypotheses (the reference's mbVO):
+        in VO mode the frame is also relocalized against the frozen map
+        (no drift correction) and a relocalized pose replaces the
+        tracked one; VO mode holds while the local map yields fewer than
+        ``vo_mode_inliers`` inliers and no relocalization succeeded."""
+        relocated = False
+        if self.vo_mode and self.relocalizer is not None:
+            ok, R, t, obs = self.relocalizer(frame)[:4]
+            if ok:
+                frame.R, frame.t = R, t
+                frame.np_R = R.cpu().numpy()
+                frame.np_t = t.cpu().numpy()
+                if obs is not None:
+                    frame.obs_lm = obs
+                st.np_R, st.np_t = frame.np_R, frame.np_t
+                self._prev2_pose = None     # the velocity is void now
+                relocated = True
+        self.vo_mode = (not relocated and
+                        n_map < self.cfg.tracking.vo_mode_inliers)
 
     def _need_keyframe_counts(self, n_map: int, close_bound: int,
                               close_unbound: int) -> bool:

@@ -1,24 +1,31 @@
 """System facade: the public entry point of the port.
 
-Port of ``slam_dynamic_tpu/system.py:29`` (``System.__init__``),
-``_ensure_voc`` :75, ``_on_keyframe`` :99, ``_on_reloc`` :125,
-``_relocalize`` :152, the box state (``_maybe_detect`` :164 for
-precomputed boxes, ``_advance_boxes`` :188, ``_active_boxes`` :197),
-``track_rgbd`` :206 (the fused path and the ``mask=`` path, :250-262),
-``track_stereo`` :250, ``track_chunk`` :271 (depth maps, right images,
-or None for mono), ``track_mono`` :315, ``_track_common`` :325,
-``_dyn_args`` :335, ``_dyn_after`` :377, ``object_states`` :443, the
-``trajectory`` property and the trajectory writers. The port's System
-tracks and maps RGB-D, stereo and monocular frames (``cfg.sensor``), per
-frame or in temporal chunks; on every keyframe it looks for
-a loop and verifies and corrects one it finds; a LOST frame is
-relocalized, and a relocalization corrects the drift it reveals. With
-the detector's boxes (``DetectorConfig.mode = "precomputed"``, the
-library default) it runs the dynamic-object module: box tracking, the
-fused H/F reclassification of the boxes and the per-object 3D state, or
-with a dynamic-pixel ``mask`` the host-built frame's classification. Not
-ported yet: the post-loop global BA, localization-only mode, the online
-detector and dense mapping.
+Port of ``slam_dynamic_tpu/system.py:29`` (``System.__init__``, the
+online detector :41-53 and the dense map :67-71), ``_ensure_voc`` :75,
+``_on_keyframe`` :99, ``_on_reloc`` :125, ``_relocalize`` :152, the box
+state (``_maybe_detect`` :164, ``_advance_boxes`` :188,
+``_active_boxes`` :197), ``track_rgbd`` :206 (the fused path and the
+``mask=`` path, :250-262), ``track_stereo`` :250, ``track_chunk`` :271
+(depth maps, right images, or None for mono), ``track_mono`` :315,
+``_track_common`` :325, ``_dyn_args`` :335, ``_dyn_after`` :377, the
+``trajectory`` property and the trajectory writers
+(``save_keyframe_trajectory_tum`` :400), the dense map's
+``_cache_frame`` :410 and ``_dense_after`` :418, ``object_states`` :443,
+``export_object_obbs_ply`` :451, ``save_pcd`` :462, ``save_dense_ply``
+:471, ``save_map`` :479, ``load_map`` :490, ``shutdown`` :527, the
+localization mode :537-541 and ``reset`` :544. The port's System tracks
+and maps RGB-D, stereo and monocular frames (``cfg.sensor``), per frame
+or in temporal chunks; on every keyframe it looks for a loop and
+verifies and corrects one it finds; a LOST frame is relocalized, and a
+relocalization corrects the drift it reveals. With the detector's boxes
+(``DetectorConfig.mode`` "precomputed", the library default, or
+"online": the port's CenterNet finds them in each frame) it runs the
+dynamic-object module: box tracking, the fused H/F reclassification of
+the boxes and the per-object 3D state, or with a dynamic-pixel ``mask``
+the host-built frame's classification. With ``pointcloud.enabled`` an
+RGB-D System keeps a dense map of its keyframes. A map saved by
+``save_map`` (either package's) resumes through ``load_map`` in
+relocalization. Not ported yet: the post-loop global BA.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 
 from . import resolve_device
 from .backend import loop_closing, relocalization
+from .backend.dense_map import DenseMapper
 from .backend.loop_closing import LoopCloser, LoopResult
 from .config import SystemConfig
 from .frontend.boxtrack import BoxTrackerState, track_boxes
@@ -38,7 +46,13 @@ from .frontend.frame import Frame, build_frame
 from .frontend.tracking import Tracker, TrackStats
 from .io import trajectory as traj_io
 from .models import vocabulary as voc_mod
+from .models.detector import (Detector, default_detector_weights,
+                              reshape_boxes_stereo)
+from .ops.pointcloud import OBB
 from .utils.camera import Intrinsics
+from .viz.headless import export_obbs_ply
+from .worldmap import checkpoint
+from .worldmap import kfdb as kfdb_mod
 
 
 def intrinsics_from_config(cfg: SystemConfig, device=None) -> Intrinsics:
@@ -55,11 +69,6 @@ class System:
     plain PyTorch path on the CPU."""
 
     def __init__(self, cfg: SystemConfig, device=None):
-        if cfg.detector.mode == "online":
-            raise NotImplementedError(
-                "the online detector (CenterNet) is not ported yet (ROADMAP "
-                "item 18); pass precomputed boxes with "
-                "DetectorConfig(mode='precomputed')")
         if cfg.loop.run_global_ba:
             raise NotImplementedError(
                 "the post-loop global BA is not ported yet (ROADMAP item "
@@ -79,6 +88,23 @@ class System:
         self.dynamics = DynamicsModule(cfg, self.device) \
             if cfg.detector.mode != "off" else None
         self._dyn_consts = None
+        # the online detector runs in the track entries when no boxes are
+        # passed: the configured weights, else the shipped asset
+        self.detector = None
+        if cfg.detector.mode == "online":
+            c, wpath = cfg.camera, (cfg.detector.weights_path
+                                    or default_detector_weights())
+            self.detector = Detector.from_npz(
+                cfg.detector, c.height, c.width, wpath, seed=cfg.seed,
+                device=self.device) if wpath else Detector(
+                cfg.detector, c.height, c.width, seed=cfg.seed,
+                device=self.device)
+        # the dense map of the keyframes (RGB-D), fed from the frames
+        # cached until their stats are final
+        self.dense = None
+        self._recent_frames = {}      # frame_id -> (gray, depth, mask)
+        if cfg.pointcloud.enabled and cfg.sensor == "rgbd":
+            self.dense = DenseMapper(cfg, self.cam)
         # place recognition: the vocabulary is loaded (or trained) at the
         # first keyframe unless a path is configured
         self.voc = None
@@ -89,13 +115,16 @@ class System:
         if path:
             self.voc = voc_mod.load(path, self.device)
             self.voc_source = path
-        self.tracker.on_keyframe = self._on_keyframe
-        self.tracker.relocalizer = self._relocalize
-        self.tracker.on_reloc = self._on_reloc
+        self._wire(self.tracker)
         if self.device.type == "cuda":
             # the first loop closing or relocalization of a process would
             # otherwise stall tracking for seconds (PERF.md, section 5)
             loop_closing.warm_up(cfg, self.cam)
+
+    def _wire(self, tracker: Tracker):
+        tracker.on_keyframe = self._on_keyframe
+        tracker.relocalizer = self._relocalize
+        tracker.on_reloc = self._on_reloc
 
     def _ensure_voc(self):
         if self.voc is None:
@@ -168,9 +197,36 @@ class System:
             di_level=self.cfg.vocabulary.direct_index_level)
 
     # ------------------------------------------------------------------
+    def _maybe_detect(self, image: np.ndarray,
+                      detections: Optional[np.ndarray],
+                      stereo: bool = False) -> Optional[np.ndarray]:
+        """The online detector's boxes [D, 4] of ``image`` when no boxes
+        were passed (None when it finds none), each grown by
+        ``quarantine_pad``; on the stereo entry reshaped as the
+        reference's ``rectCenterScale`` does. One readback."""
+        if detections is not None or self.detector is None:
+            return detections
+        det = self.detector.detect(image)
+        both = torch.cat([det.boxes, det.valid[:, None].to(torch.float32)],
+                         1).cpu().numpy()
+        v = both[:, 4] > 0
+        if not v.any():
+            return None
+        boxes = both[v, :4]
+        pad = self.cfg.detector.quarantine_pad
+        if pad > 0:
+            cx = (boxes[:, 0] + boxes[:, 2]) / 2
+            cy = (boxes[:, 1] + boxes[:, 3]) / 2
+            hw = (boxes[:, 2] - boxes[:, 0]) / 2 * (1 + pad)
+            hh = (boxes[:, 3] - boxes[:, 1]) / 2 * (1 + pad)
+            boxes = np.stack([cx - hw, cy - hh, cx + hw, cy + hh], 1)
+        if stereo:
+            boxes = reshape_boxes_stereo(boxes)
+        return boxes
+
     def _advance_boxes(self, detections: Optional[np.ndarray]):
         """Advance the box tracker by one frame's detections [D, 4]
-        (precomputed boxes; None is no detection)."""
+        (None is no detection)."""
         if detections is None:
             detections = np.zeros((0, 4), np.float32)
         dc = self.cfg.dynamic
@@ -240,14 +296,22 @@ class System:
         their keypoints quarantined or reinstated in the same step.
         ``mask`` [H, W] (True = dynamic pixel) quarantines the keypoints on
         it; such a frame is built and tracked on the host
-        (``_track_common``), its boxes classified before it is tracked."""
+        (``_track_common``), its boxes classified before it is tracked.
+        Without ``detections`` the online detector, if configured, finds
+        them. A keyframe enters the dense map once its stats are final."""
+        detections = self._maybe_detect(gray, detections)
+        if self.dense is not None:
+            self._cache_frame(self.frame_id, gray, depth, mask)
         if mask is not None:
             self._advance_boxes(detections)
             boxes, bvalid = self._active_boxes()
             frame = build_frame(self.cfg, self.cam, gray, self.frame_id,
                                 timestamp, depth, boxes, bvalid, mask=mask)
-            return self._track_common(frame)
-        return self._track_fused(gray, depth, timestamp, detections)
+            st = self._track_common(frame)
+        else:
+            st = self._track_fused(gray, depth, timestamp, detections)
+        self._dense_after(st)
+        return st
 
     def track_stereo(self, left: np.ndarray, right: np.ndarray,
                      timestamp: float,
@@ -255,7 +319,9 @@ class System:
         """Stereo entry (ref System::TrackStereo): rectified uint8 left
         and right images in, one fused device step per tracked frame (two
         extractions and the row-band matcher); ``detections`` as in
-        ``track_rgbd``."""
+        ``track_rgbd`` (the online detector's boxes reshaped for
+        stereo)."""
+        detections = self._maybe_detect(left, detections, stereo=True)
         return self._track_fused(left, right, timestamp, detections)
 
     def track_mono(self, gray: np.ndarray, timestamp: float) -> TrackStats:
@@ -304,8 +370,10 @@ class System:
         if auxs is None:
             auxs = [None] * len(grays)
         for j, (g, d, ts) in enumerate(zip(grays, auxs, timestamps)):
-            self._advance_boxes(detections[j] if detections is not None
-                                else None)
+            # the online detector per frame, as the JAX package's chunk
+            # runs it (its boxes are not reshaped for stereo there)
+            self._advance_boxes(self._maybe_detect(
+                g, detections[j] if detections is not None else None))
             boxes, bvalid = self._active_boxes()
             if self.dynamics is not None and len(self.boxes.boxes):
                 boxes = self.boxes.boxes.copy()
@@ -357,3 +425,133 @@ class System:
 
     def save_trajectory_kitti(self, path: str):
         traj_io.save_kitti(path, self.trajectory)
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """The keyframes' poses in TUM format (the map as it stands)."""
+        m = self.tracker.map
+        n = int(m.n_kf)
+        ts = m.kf_timestamp.cpu().numpy()
+        kf_R, kf_t = m.kf_R.cpu().numpy(), m.kf_t.cpu().numpy()
+        valid = m.kf_valid.cpu().numpy()
+        traj_io.save_tum(path, [(float(ts[k]), kf_R[k], kf_t[k])
+                                for k in range(n) if valid[k]])
+
+    # ------------------------------------------------------------------
+    def _cache_frame(self, frame_id: int, gray, depth, mask):
+        """Keep the last frames' pixels until their stats are final (a
+        keyframe's stats lag by the frames in flight)."""
+        self._recent_frames[frame_id] = (gray, depth, mask)
+        for k in list(self._recent_frames):
+            if k < frame_id - 4:
+                del self._recent_frames[k]
+
+    def _dense_after(self, st: TrackStats):
+        """A finalized keyframe into the dense map (the reference's
+        PointCloudMapping::insertKeyFrame), its boxes confirmed dynamic
+        left out of the cloud."""
+        if self.dense is None or not st.is_keyframe or st.np_R is None:
+            return
+        cached = self._recent_frames.get(st.frame_id)
+        if cached is None:
+            return
+        gray, depth, mask = cached
+        depth = np.asarray(depth)
+        if depth.dtype == np.uint16:
+            depth = depth.astype(np.float32) \
+                / max(self.cfg.camera.depth_map_factor, 1e-9)
+        boxes = box_ids = box_dyn = None
+        if len(self.boxes.boxes):
+            boxes = self.boxes.boxes
+            box_ids = self.boxes.ids
+            box_dyn = self.boxes.status == 2
+        self.dense.insert_keyframe(
+            np.asarray(gray, np.float32), depth, st.np_R, st.np_t,
+            dyn_mask=mask, boxes=boxes, box_ids=box_ids,
+            box_dynamic=box_dyn)
+
+    def export_object_obbs_ply(self, path: str) -> int:
+        """The dynamic objects' boxes as a PLY edge cloud (the reference's
+        MapDrawer::DrawDynamics, headless); returns the point count."""
+        obbs = {bid: OBB(np.asarray(s["t"]), np.asarray(s["R"]),
+                         np.asarray(s["ext"]), True)
+                for bid, s in self.object_states.items()}
+        return export_obbs_ply(path, obbs)
+
+    def _dense_or_raise(self) -> DenseMapper:
+        if self.dense is None:
+            raise RuntimeError("pointcloud.enabled is off (or sensor is "
+                               "not rgbd); no dense map to save")
+        self.tracker.flush()
+        return self.dense
+
+    def save_pcd(self, path: str) -> int:
+        """The dense cloud as PCD (the reference's System::SavePCD);
+        needs ``pointcloud.enabled``. Returns the point count."""
+        return self._dense_or_raise().save_pcd(path)
+
+    def save_dense_ply(self, path: str) -> int:
+        return self._dense_or_raise().save_ply(path)
+
+    # ------------------------------------------------------------------
+    def save_map(self, path: str):
+        """The sparse map as an npz checkpoint in the JAX package's format
+        (the reference declares SaveMap and never implements it)."""
+        self.tracker.flush()
+        checkpoint.save_map(path, self.tracker.map)
+
+    def load_map(self, path: str):
+        """Resume from a checkpoint (this package's or the JAX package's):
+        the tracker has no last frame, so it starts LOST and relocalizes
+        against the loaded keyframes on the next frame; the keyframe
+        database is rebuilt from their descriptors."""
+        m = checkpoint.load_map(path, self.device)
+        t = self.tracker
+        t.flush()
+        t.map = m
+        t.n_kf_host = int(m.n_kf)
+        t.kf_seq = t.n_kf_host
+        t.last_kf_id = t.n_kf_host - 1
+        t.last_frame = None
+        t._kf_pose_cache.clear()       # poses of the map it replaces
+        t.state = "LOST" if t.n_kf_host > 0 else "NOT_INITIALIZED"
+        if t.n_kf_host == 0:
+            return
+        self._ensure_voc()
+        db = kfdb_mod.KFDatabase.empty(
+            self.cfg.capacity.max_keyframes,
+            min(kfdb_mod.TOP_WORDS, self.voc.n_words), device=self.device)
+        valid = m.kf_valid.cpu().numpy()
+        for k in range(t.n_kf_host):
+            if not valid[k]:
+                continue
+            bv = voc_mod.transform(self.voc, m.kf_kp_desc[k],
+                                   m.kf_kp_valid[k])
+            db = kfdb_mod.add(db, k,
+                              voc_mod.sparse_bow(bv, top_w=db.word.shape[1]))
+        self.loop.db = db
+
+    def shutdown(self):
+        """Drain the frames in flight (the reference's System::Shutdown
+        joins its threads); the System stays queryable."""
+        self.tracker.flush()
+
+    def activate_localization_mode(self):
+        """Track only, against the map as it stands (the reference's
+        ActivateLocalizationMode)."""
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.tracker.localization_only = False
+
+    def reset(self):
+        """A fresh tracker and map (the loop closer, box state and dense
+        map too); the configuration and vocabulary stay."""
+        self.tracker = Tracker(self.cfg, self.cam)
+        self._wire(self.tracker)
+        if self.loop is not None:
+            self.loop = LoopCloser(self.cfg, self.cam, self.voc)
+        self.boxes = BoxTrackerState.empty()
+        self.frame_id = 0
+        self._recent_frames = {}
+        if self.dense is not None:
+            self.dense = DenseMapper(self.cfg, self.cam)

@@ -91,9 +91,11 @@ def test_default_config_constructs_and_unported_parts_raise(world):
     system = System(TC.SystemConfig(), device="cpu")
     assert system.dynamics is not None
     assert system.cfg.detector.mode == "precomputed"
-    with pytest.raises(NotImplementedError, match="item 18"):
-        System(TC.SystemConfig(detector=TC.DetectorConfig(mode="online")),
-               device="cpu")
+    # the online detector is ported (item 18): its System builds the
+    # CenterNet with the shipped weights
+    online = System(TC.SystemConfig(detector=TC.DetectorConfig(
+        mode="online")), device="cpu")
+    assert online.detector is not None and online.detector.n_classes == 8
     # stereo and mono are ported (item 17): their default configs build
     for sensor in ("stereo", "mono"):
         s = System(TC.SystemConfig(sensor=sensor), device="cpu")

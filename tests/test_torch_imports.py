@@ -1,6 +1,6 @@
-"""The port and chip_smoke.py import nothing of JAX or of the JAX package
-(the card's machine has no JAX, and slam_dynamic_tpu/__init__.py imports
-it)."""
+"""The port, chip_smoke.py and the driver it loads (tests/port_drive.py)
+import nothing of JAX or of the JAX package (the card's machine has no
+JAX, and slam_dynamic_tpu/__init__.py imports it)."""
 import ast
 import os
 import subprocess
@@ -12,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted(str(p.relative_to(ROOT)) for p in
                (ROOT / "slam_dynamic_tpu_torch").rglob("*.py")) + \
-    ["chip_smoke.py"]
+    ["chip_smoke.py", "tests/port_drive.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "slam_dynamic_tpu")
 
 
@@ -55,7 +55,14 @@ def test_importing_the_port_loads_no_jax():
             "slam_dynamic_tpu_torch.ops.twoview, "
             "slam_dynamic_tpu_torch.ops.orb_batched, "
             "slam_dynamic_tpu_torch.frontend.initializer, "
-            "slam_dynamic_tpu_torch.io.datasets; "
+            "slam_dynamic_tpu_torch.io.datasets, "
+            "slam_dynamic_tpu_torch.io.run, "
+            "slam_dynamic_tpu_torch.models.detector, "
+            "slam_dynamic_tpu_torch.ops.nms, "
+            "slam_dynamic_tpu_torch.backend.dense_map, "
+            "slam_dynamic_tpu_torch.worldmap.checkpoint, "
+            "slam_dynamic_tpu_torch.viz.headless, "
+            "slam_dynamic_tpu_torch.viz.ar; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

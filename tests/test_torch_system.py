@@ -182,12 +182,15 @@ def test_unported_options_raise(change):
     if change == "stereo":
         # the stereo sensor is ported (test_torch_stereo.py); an unported
         # option of a stereo System still raises
-        cfg = cfg.replace(sensor="stereo", detector=dataclasses.replace(
-            cfg.detector, mode="online"))
+        cfg = cfg.replace(sensor="stereo", loop=dataclasses.replace(
+            cfg.loop, run_global_ba=True))
     elif change == "detector":
-        # precomputed boxes are ported; the online detector is not
-        cfg = cfg.replace(detector=dataclasses.replace(cfg.detector,
-                                                       mode="online"))
+        # precomputed boxes and the online detector are ported
+        # (test_torch_online_system.py); an unported option of an
+        # online-detector System still raises
+        cfg = cfg.replace(
+            detector=dataclasses.replace(cfg.detector, mode="online"),
+            tracking=dataclasses.replace(cfg.tracking, depth_stride=2))
     elif change == "global_ba":
         cfg = cfg.replace(loop=dataclasses.replace(cfg.loop,
                                                    run_global_ba=True))
@@ -198,6 +201,7 @@ def test_unported_options_raise(change):
         cfg = cfg.replace(tracking=dataclasses.replace(
             cfg.tracking, pipeline_depth=1, adaptive_pipeline=True))
     with pytest.raises(NotImplementedError,
-                       match="item 20" if change == "global_ba" else None):
+                       match="item 20" if change in ("global_ba", "stereo")
+                       else None):
         System(cfg, device="cpu")
 

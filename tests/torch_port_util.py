@@ -6,11 +6,12 @@ stays on the CPU (tests/conftest.py) and the port runs with
 
 Run as a script, it drives the JAX package (or, with ``--package
 port``, the port) on the CPU over the 640x480 worlds that
-``chip_smoke.py`` phases 10b and 11 drive through the port on the card,
-for the reference numbers beside the card's:
+``chip_smoke.py`` phases 10b, 11 and 12 drive through the port on the
+card, for the reference numbers beside the card's:
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_port_util.py \\
-        --world stereo-dynamic|mono [--frames N] [--package jax|port]
+        --world stereo-dynamic|mono|online [--frames N] \\
+        [--package jax|port]
 """
 import dataclasses
 
@@ -23,8 +24,8 @@ from slam_dynamic_tpu_torch import config as TC
 from slam_dynamic_tpu_torch.bench import drive_per_frame, track_entry
 from slam_dynamic_tpu_torch.convert import frame_data_from_numpy
 from slam_dynamic_tpu_torch.frontend.frame import FrameData as TFrameData
-from slam_dynamic_tpu_torch.io.bench_world import detections
 from slam_dynamic_tpu_torch.io.synthetic import SynthConfig, generate
+from port_drive import run_dynamic  # noqa: F401  (the tests import it here)
 
 # The tests run in several worker processes at once; torch's own thread
 # pool per worker only oversubscribes the cores the JAX reference needs.
@@ -184,7 +185,8 @@ def check_kfdb(js, ts):
 
 
 # --- dynamic-scene System runs (tests/test_torch_dynamic_chunk.py,
-# tests/test_torch_dynamic_frame.py) ---
+# tests/test_torch_dynamic_frame.py, and with the online detector
+# tests/test_torch_online_system.py, tests/test_torch_online_chunk.py) ---
 
 # the 320x240 worlds of tests/test_e2e_dynamic.py
 DYNAMIC_WORLDS = {
@@ -219,40 +221,59 @@ def dynamic_configs(scfg, detector="precomputed", **dynamic):
     return out
 
 
-def run_dynamic(system, world, n_frames, chunk, use_boxes=True):
-    """Either package's System on a dynamic world with its boxes (none
-    unless ``use_boxes``): per frame (chunk 1), or per frame until
-    tracking is OK and then in chunks of ``chunk``, then the frames in
-    flight. Returns the stats, the box statuses after every call with the
-    frames finalized in it (``history``: [(frame ids, statuses)]) and the
-    trajectory. ``world`` as ``dynamic_world`` returns it; the System's
-    sensor picks its entry."""
-    _, seq, gray8, aux = world
-    track = track_entry(system)
-    ts = [float(t) for t in seq.timestamps]
-    stats, history, i = [], [], 0
+def run_online(world, n_frames, chunk):
+    """The JAX and the port System with the online detector
+    (``dynamic_configs(detector="online")``) through ``run_dynamic`` with
+    no boxes passed; the port's detector calls are counted (``calls``)."""
+    from slam_dynamic_tpu.system import System as JSystem
+    from slam_dynamic_tpu_torch.system import System
+    jcfg, tcfg = dynamic_configs(world[0], detector="online")
+    tsys = System(tcfg, device="cpu")
+    calls = []
+    orig = tsys.detector.detect
 
-    def boxes(i):
-        return detections(seq, i) if use_boxes else None
+    def counting(image):
+        calls.append(image.shape)
+        return orig(image)
+    tsys.detector.detect = counting
+    return {"jax": run_dynamic(JSystem(jcfg), world, n_frames, chunk,
+                               use_boxes=False),
+            "port": run_dynamic(tsys, world, n_frames, chunk,
+                                use_boxes=False),
+            "n": n_frames, "calls": calls}
 
-    def record(new):
-        stats.extend(new)
-        history.append(([s.frame_id for s in new],
-                        tuple(int(x) for x in system.boxes.status)))
-    while i < n_frames and (chunk == 1 or system.tracker.state != "OK"):
-        record([track(gray8[i], aux[i], ts[i], detections=boxes(i))])
-        i += 1
-    while i + chunk <= n_frames and chunk > 1:
-        record(system.track_chunk(
-            gray8[i:i + chunk], aux[i:i + chunk], ts[i:i + chunk],
-            detections=[boxes(i + j) for j in range(chunk)]))
-        i += chunk
-    tail = []
-    while system.tracker._pending:
-        tail.append(system.tracker._finalize_one())
-    record(tail)
-    est = np.stack([-R.T @ t for _, R, t in system.trajectory])
-    return dict(stats=stats, history=history, est=est, system=system)
+
+def check_online_boxes(runs):
+    """The port's detector ran once a frame; the same box ids and the
+    same statuses after every call as JAX, the object confirmed
+    dynamic."""
+    assert len(runs["calls"]) == runs["n"]
+    ij = np.asarray(runs["jax"]["system"].boxes.ids)
+    np.testing.assert_array_equal(runs["port"]["system"].boxes.ids, ij)
+    assert len(ij) >= 1
+    hj, ht = runs["jax"]["history"], runs["port"]["history"]
+    assert ht == hj
+    assert 2 in hj[-1][1]
+
+
+def check_online_decisions(runs):
+    """Every frame OK; the same keyframe decisions up to the first frame
+    at which the box statuses differ."""
+    dj, dt = decisions(runs["jax"]), decisions(runs["port"])
+    assert [d[0] for d in dt] == [d[0] for d in dj]
+    assert all(d[1] == "OK" for d in dj + dt)
+    upto = first_status_difference(runs["jax"], runs["port"])
+    assert dt[:upto] == dj[:upto]
+
+
+def check_online_ate(runs, world):
+    """ATE within max(1 mm, 20%) of JAX's."""
+    from slam_dynamic_tpu.io.evo import ate_rmse as jate
+    from slam_dynamic_tpu_torch.io.evo import ate_rmse
+    est_j, est_t = runs["jax"]["est"], runs["port"]["est"]
+    ate_j = jate(est_j, world[1].t_wc[:len(est_j)])
+    ate_t = ate_rmse(est_t, world[1].t_wc[:len(est_t)])
+    assert abs(ate_t - ate_j) <= max(1e-3, 0.2 * ate_j), (ate_t, ate_j)
 
 
 def status_by_frame(run):
@@ -383,8 +404,8 @@ def check_orbit_closure(chunk):
         (ate_t, ate_j)
 
 
-# --- the JAX package on the 640x480 worlds of chip_smoke.py's phases 10b
-# and 11 (python tests/torch_port_util.py, below) ---
+# --- the JAX package on the 640x480 worlds of chip_smoke.py's phases
+# 10b, 11 and 12 (python tests/torch_port_util.py, below) ---
 
 def jax_config(cfg):
     """Either package's ``SystemConfig`` as the JAX package's, field for
@@ -422,12 +443,15 @@ def jax_init_samples(seed, ok):
 
 def _reference(argv=None):
     """The JAX package (or the port), on the CPU, on the worlds chip_smoke.py
-    drives per frame: ``--world stereo-dynamic`` (phase 10b: the stereo
-    pair of the moving-object world, ``track_stereo(detections=)``,
-    classification on every 2nd frame, one frame in flight) or ``--world
-    mono`` (phase 11: ``track_mono``). Prints one JSON line: LOST and
-    not-OK frames, the first OK frame, the first frame with a box
-    confirmed dynamic, and the ATE in metres (Sim3-aligned for mono, as
+    drives: ``--world stereo-dynamic`` (phase 10b: the stereo pair of the
+    moving-object world, ``track_stereo(detections=)``, classification on
+    every 2nd frame, one frame in flight), ``--world mono`` (phase 11:
+    ``track_mono``) or ``--world online`` (phase 12: the moving-object
+    RGB-D world chunked at C = 6, one chunk in flight, with no boxes
+    passed: the online detector finds them). Prints one JSON line: LOST
+    and not-OK frames, the first OK frame, the first frame with a box
+    confirmed dynamic (of its call, chunked), the most boxes tracked at
+    once (online), and the ATE in metres (Sim3-aligned for mono, as
     chip_smoke.py reports it)."""
     import argparse
     import json
@@ -441,18 +465,25 @@ def _reference(argv=None):
     from slam_dynamic_tpu_torch.system import System as PortSystem
 
     ap = argparse.ArgumentParser(description=_reference.__doc__)
-    ap.add_argument("--world", choices=("stereo-dynamic", "mono"),
+    ap.add_argument("--world", choices=("stereo-dynamic", "mono", "online"),
                     required=True)
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--package", choices=("jax", "port"), default="jax")
     ap.add_argument("--jax-samples", action="store_true",
                     help="the port's mono bootstrap draws JAX's samples")
     args = ap.parse_args(argv)
+    online = args.world == "online"
     dynamic = args.world == "stereo-dynamic"
-    n = args.frames or (30 if dynamic else 50)
-    world = bench_world(n, dynamic=dynamic,
-                        sensor="stereo" if dynamic else "mono")
+    n = args.frames or {"stereo-dynamic": 30, "mono": 50,
+                        "online": 25}[args.world]
+    world = bench_world(n, dynamic=dynamic or online,
+                        sensor={"stereo-dynamic": "stereo", "mono": "mono",
+                                "online": "rgbd"}[args.world])
     cfg = world[3]
+    if online:
+        cfg = cfg.replace(
+            detector=TC.DetectorConfig(mode="online"),
+            tracking=dataclasses.replace(cfg.tracking, pipeline_depth=1))
     if dynamic:
         cfg = cfg.replace(
             tracking=dataclasses.replace(cfg.tracking, pipeline_depth=1),
@@ -462,16 +493,23 @@ def _reference(argv=None):
         PortSystem(cfg, device="cpu")
     if args.jax_samples:
         system.tracker.init_sample_fn = jax_init_samples
-    r = drive_per_frame(system, world, n, dynamic)
+    if online:
+        r = run_dynamic(system, (cfg, *world[:3]), n, 6, use_boxes=False)
+        r["states"] = [s.state for s in r["stats"]]
+        r["first_ok"] = r["states"].index("OK")
+    else:
+        r = drive_per_frame(system, world, n, dynamic)
     seq, est = world[0], r["est"]
-    i0 = n - len(est)
-    ate = ate_rmse(est, seq.t_wc[i0:i0 + len(est)], with_scale=not dynamic)
+    i0 = 0 if online else n - len(est)
+    ate = ate_rmse(est, seq.t_wc[i0:i0 + len(est)],
+                   with_scale=args.world == "mono")
     print(json.dumps({
         "package": args.package, "world": args.world, "frames": n,
         "lost": r["states"].count("LOST"),
         "not_ok": sum(s != "OK" for s in r["states"]),
         "first_ok": r["first_ok"], "first_dynamic": r["first_dynamic"],
-        "ate_m": float(ate), "cpu_s": round(time.perf_counter() - t0, 1)}))
+        "max_boxes": r.get("max_boxes"), "ate_m": float(ate),
+        "cpu_s": round(time.perf_counter() - t0, 1)}))
 
 
 if __name__ == "__main__":
