@@ -39,7 +39,8 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      640x480 world with a moving object, its boxes fed every frame it is
      in view (frames 0-50), System.track_chunk at C = 6 with one chunk in
      flight and the fused H/F box classification on every 2nd chunk
-     frame: fps, chunk p50 and p90 ms, LOST frames, ATE, the launches of
+     frame, ``DYN_CHUNK_FRAMES`` frames (the object's 50 and 10 after
+     it): fps, chunk p50 and p90 ms, LOST frames, ATE, the launches of
      K1 and K2, K2's launches per chunk (3 classifications in every
      chunk that makes no keyframe, at least 3 in the others), packet
      readbacks (one per chunk) and the per-box status history; the
@@ -97,7 +98,8 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
   10. stereo as ``python -m slam_dynamic_tpu_torch.bench --stereo`` runs
      it (``bench.py --stereo``): the 640x480 stereo pair, two
      extractions and the row-band matcher per frame, System.track_chunk
-     at C = 6 with one chunk in flight, 120 frames: fps, chunk p50 and
+     at C = 6 with one chunk in flight, ``STEREO_CHUNK_FRAMES`` frames:
+     fps, chunk p50 and
      p90 ms, LOST frames (none), ATE (under 30 mm) beside the JAX
      package's on the CPU, launches; K1 held bit-equal on the first warm
      chunk's calls, and K2 on its six stereo matches (1000 x 1000, left
@@ -141,6 +143,25 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      rosbag`` on 10 frames of the synthetic world recorded by the port's
      BagWriter (no LOST frame, the ATE within max(1 mm, 20%) of
      track_rgbd's on the same decoded frames).
+  14. batched serving and strided depth, each path with its own launch
+     counts: (a) ``python -m slam_dynamic_tpu_torch.bench --multi 4``'s
+     run, a pipelined MultiSystem of 4 lanes on 60 frames of the bench
+     world each (lane b shifted by 3 b frames): aggregate and per-lane
+     fps, step p50 and p90, no LOST frame in any lane, lane 0's ATE under
+     30 mm and within max(1 mm, 20%) of a solo System on the same frames
+     with one frame in flight, run in the same call; the kernel launches,
+     sync calls and busy share of a steady batched step under
+     torch.profiler beside one lane's frame (the solo System's), and 3
+     batched K1 launches in every timed step, as one lane's fused step
+     makes; the batched K1 calls of the first 3 steps held bit-equal with
+     4 single launches and the plain version, timed beside them;
+     (b) ``--multi 2 --chunk 6`` on 48 frames from a cold start (per-frame
+     batches until every lane is OK, then chunks); (c)
+     ``MultiSystem.track_stereo_batch`` on 2 lanes x 20 frames of the
+     stereo pair, K1 and K2 batched, held on the first 3 steps' calls and
+     K2's batched launch timed; (d) System.track_rgbd with
+     ``depth_stride=2`` on 30 frames of phase 3's world, its ATE beside
+     phase 3's.
 
 Kernel, plain and library times are device times (CUDA-graph replay
 between CUDA events, slam_dynamic_tpu_torch/kernel_bench.py), each beside
@@ -148,8 +169,9 @@ the least time the card could take for the same work; K2's row takes
 its times from phase 6's inputs. It then prints the wall time of each
 phase, the kernel table as one JSON line (``launches`` is phase 5's
 count, the main path's; ``launches_per_phase`` adds phases 3, 6, 7, 8,
-8c, 8b, 9, 10, 10b, 11, 12 and the four paths of 13) and, last, the result
-line. Any failed check
+8c, 8b, 9, 10, 10b, 11, 12, the four paths of 13 and the four of 14; the
+batched launches of K1 and K2 have rows of their own, ``launches`` there
+phase 14a's and 14c's) and, last, the result line. Any failed check
 raises, and a hang ends in a traceback and a nonzero exit after 1100 s.
 """
 import contextlib
@@ -166,6 +188,10 @@ SEED = 0
 N_FRAMES = 45
 CHUNK = 6
 CHUNK_FRAMES = 120
+# phases 6 and 10 run 60 frames of bench --dynamic's and bench --stereo's
+# 120, so that phase 14 fits the script's time (PERF.md, section 4)
+DYN_CHUNK_FRAMES = 60
+STEREO_CHUNK_FRAMES = 60
 DYN_FRAMES = 20
 OBJECT_LEAVES = 50      # the bench world's object is in view before this
 ORBIT_FRAMES = 100      # tests/test_e2e_loop_reloc.py's circuit
@@ -192,13 +218,14 @@ MONO_FRAMES = 50
 # them) and hold each against its plain version
 RECORD_FRAMES = 6
 # The JAX package on the CPU on the same worlds: ``python bench.py
-# --stereo --cpu`` (phase 10's ATE, mm) and ``JAX_PLATFORMS=cpu
+# --stereo --cpu --frames 60`` (phase 10's ATE, mm; 27.55 at its default
+# 120 frames) and ``JAX_PLATFORMS=cpu
 # PYTHONPATH=. python tests/torch_port_util.py --world stereo-dynamic``
 # (phase 10b: ATE in mm, the first frame with the object confirmed
 # dynamic) and ``--world mono`` (phase 11: the frame it initialized at,
 # the Sim3-aligned ATE in mm); the port on the CPU with the JAX package's
 # bootstrap draws, ``--world mono --package port --jax-samples`` (mm).
-JAX_STEREO_CHUNK_ATE_MM = 27.55
+JAX_STEREO_CHUNK_ATE_MM = 9.38
 JAX_STEREO_DYN = (9.024, 9)
 JAX_MONO = (2, 23.016)
 JAX_MONO_PORT_CPU_MM = 22.962
@@ -224,6 +251,14 @@ CLI_FRAMES = 20
 CLI_SKIP = 10
 LOCALIZE_FRAMES = 8
 BAG_FRAMES = 10
+MULTI_LANES = 4
+MULTI_FRAMES = 60
+MULTI_CHUNK_LANES = 2
+MULTI_CHUNK_FRAMES = 48
+MULTI_STEREO_FRAMES = 20
+STRIDE_FRAMES = 30
+RECORD_STEPS = 3        # batched steps whose K1 and K2 calls are kept
+PROFILED_STEPS = 1
 
 
 def log(msg):
@@ -414,7 +449,7 @@ def phase_system(gm, hm, kb):
     if len(calls) != launches["gated_match"]:
         raise AssertionError(f"{len(calls)} K1 calls kept, "
                              f"{launches['gated_match']} launched")
-    return launches, calls
+    return launches, calls, ate_mm
 
 
 def phase_chunk(gm, hm, kb):
@@ -492,7 +527,7 @@ def phase_dynamic_chunk(gm, hm, kb, k2_err):
     # K2's inputs are copied from the second warm chunk's three
     # classifications: the first with a reference frame (the first chunk
     # classifies against the placeholder)
-    r = bench.run(CHUNK_FRAMES, CHUNK, seed=SEED, dynamic=True,
+    r = bench.run(DYN_CHUNK_FRAMES, CHUNK, seed=SEED, dynamic=True,
                   warm_chunk=lambda: kb.recording_k2(k2_calls),
                   warm_index=1, on_step=on_step)
     launches = {"gated_match": gm.launches, "hamming_matrix": hm.launches}
@@ -508,7 +543,8 @@ def phase_dynamic_chunk(gm, hm, kb, k2_err):
     ate_mm = r["ate_m"] * 1e3
     changes = status_changes(history)
     confirmed = [fids for fids, st in history if 2 in st]
-    log(f"phase 6 System.track_chunk dynamic scene 640x480 x {CHUNK_FRAMES} "
+    log(f"phase 6 System.track_chunk dynamic scene 640x480 x "
+        f"{DYN_CHUNK_FRAMES} "
         f"frames, C = {CHUNK}, one chunk in flight, classification every "
         f"{system.cfg.dynamic.classify_every_chunked}nd chunk frame: "
         f"{r['fps']:.2f} fps over {r['n_timed']} timed frames, chunk p50 "
@@ -1142,7 +1178,7 @@ def phase_relocalization(gm, hm, kb, k1_err):
 
 
 def phase_stereo_chunk(gm, hm, kb, k1_err, k2_err):
-    """Phase 10: ``bench --stereo``'s path, 120 frames at C = 6 with one
+    """Phase 10: ``bench --stereo``'s path, 60 frames at C = 6 with one
     chunk in flight; K1 and K2 held on the first warm chunk's inputs."""
     import numpy as np
     from slam_dynamic_tpu_torch import bench
@@ -1156,7 +1192,7 @@ def phase_stereo_chunk(gm, hm, kb, k1_err, k2_err):
         return stack
 
     _zero_launches(gm, hm)
-    r = bench.run(CHUNK_FRAMES, CHUNK, seed=SEED, stereo=True,
+    r = bench.run(STEREO_CHUNK_FRAMES, CHUNK, seed=SEED, stereo=True,
                   warm_chunk=warm)
     launches = _launches(gm, hm)
     system = r["system"]
@@ -1164,7 +1200,8 @@ def phase_stereo_chunk(gm, hm, kb, k1_err, k2_err):
     n_lost = sum(s.state != "OK" for s in r["stats"])
     ms = np.sort(r["step_ms"])
     ate_mm = r["ate_m"] * 1e3
-    log(f"phase 10 System.track_chunk stereo 640x480 x {CHUNK_FRAMES} "
+    log(f"phase 10 System.track_chunk stereo 640x480 x "
+        f"{STEREO_CHUNK_FRAMES} "
         f"frames, C = {CHUNK}, one chunk in flight: {r['fps']:.2f} fps over "
         f"{r['n_timed']} timed frames, chunk p50 {np.median(ms):.1f} ms, p90 "
         f"{ms[int(len(ms) * 0.9)]:.1f} ms, keyframes "
@@ -1705,6 +1742,309 @@ def phase_cli(gm, hm, kb, k1_err, k2_err):
     return launches, k1_err, k2_err
 
 
+def _profiled(fn, n: int) -> dict:
+    """``n`` calls of ``fn()`` under torch.profiler, the device synchronized
+    after them: per call, the kernel launches (the runtime's launch calls)
+    and the synchronize and copy calls; the device's busy share over the
+    window (summed kernel time over wall time). Only the CUDA activity is
+    traced (the runtime's calls and the kernels, no operator events): the
+    trace's processing, not the steps, is most of the time."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    on_card = [e for e in ev
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_us = sum(e.self_device_time_total for e in on_card)
+    if not on_card:
+        raise AssertionError("torch.profiler recorded nothing on the card")
+    return dict(
+        launches=sum(e.count for e in ev if "LaunchKernel" in e.key) / n,
+        kernels=sum(e.count for e in on_card) / n,
+        syncs=sum(e.count for e in ev if "Synchronize" in e.key
+                  or "Memcpy" in e.key) / n,
+        busy=kernel_us / 1e3 / wall_ms, wall_ms=wall_ms / n)
+
+
+def hold_batched(gm, hm, kb, k1_calls, k2_calls, what, k1_err, k2_err):
+    """Every recorded batched K1 and K2 call bit-equal with B single
+    launches and with the plain per-lane loop (idx included); returns the
+    errors raised to the largest absolute differences."""
+    import torch
+    for args, lo, hi in k1_calls:
+        got = gm.gated_match_batched(*args, lvl_min=lo, lvl_max=hi)
+        singles = kb.per_lane(gm.gated_match)(*args, lvl_min=lo, lvl_max=hi)
+        plain = gm.gated_match_batched_plain(*args, lvl_min=lo, lvl_max=hi)
+        torch.cuda.synchronize()
+        single = [torch.stack(x) for x in zip(*singles)]
+        k1_err = max(k1_err, *(_max_diff(k, p) for k, p in zip(got, plain)))
+        if not all(torch.equal(k, p) and torch.equal(k, o)
+                   for k, p, o in zip(got, plain, single)):
+            raise AssertionError(f"batched K1 on {what}: kernel != single "
+                                 f"launches or plain (err {k1_err})")
+    for a, b in k2_calls:
+        got = hm.hamming_matrix_batched(a, b)
+        single = torch.stack(kb.per_lane(hm.hamming_matrix)(a, b))
+        plain = hm.hamming_matrix_batched_plain(a, b)
+        torch.cuda.synchronize()
+        k2_err = max(k2_err, _max_diff(got, plain))
+        if not (torch.equal(got, plain) and torch.equal(got, single)):
+            raise AssertionError(f"batched K2 on {what}: kernel != single "
+                                 f"launches or plain (err {k2_err})")
+    return k1_err, k2_err
+
+
+def _recording_steps(kb, k1_calls, k2_calls, launched):
+    """A ``step_ctx`` for ``bench.run_multi``: the RECORD_STEPS steps after
+    the first (where every lane initializes on its own path) keep their
+    batched K1 and K2 calls; ``launched`` gets the batched launches they
+    made."""
+    from slam_dynamic_tpu_torch.ops import gated_match as gm
+    from slam_dynamic_tpu_torch.ops import hamming as hm
+
+    @contextlib.contextmanager
+    def ctx(step):
+        if not 1 <= step <= RECORD_STEPS:
+            yield
+            return
+        l1, l2 = gm.batched_launches, hm.batched_launches
+        with kb.recording_batched(k1_calls, k2_calls):
+            yield
+        launched[0] += gm.batched_launches - l1
+        launched[1] += hm.batched_launches - l2
+    return ctx
+
+
+def _zero_batched(gm, hm):
+    _zero_launches(gm, hm)
+    gm.batched_launches = 0
+    hm.batched_launches = 0
+
+
+def _batched_launches(gm, hm):
+    return {"gated_match": gm.launches, "hamming_matrix": hm.launches,
+            "gated_match_batched": gm.batched_launches,
+            "hamming_matrix_batched": hm.batched_launches}
+
+
+def _multi_checks(r, what, lanes):
+    """No LOST frame in any lane, every lane's trajectory whole and finite,
+    lane 0's ATE under 30 mm, one packet readback per batched step."""
+    import numpy as np
+    ms = r["ms"]
+    flat = [st for row in r["stats"] if row for st in row if st is not None]
+    n_lost = sum(st.state == "LOST" for st in flat)
+    lens = [len(s.trajectory) for s in ms.systems]
+    steps = (ms.dispatches, ms.packet_reads)
+    if n_lost or r["ate_m"] * 1e3 >= 30.0 or len(ms.systems) != lanes \
+            or ms.dispatches != ms.packet_reads \
+            or any(s.tracker.state != "OK" for s in ms.systems) \
+            or not all(np.isfinite(np.stack([t for _, _, t in
+                                             s.trajectory])).all()
+                       for s in ms.systems):
+        raise AssertionError(f"{what}: LOST frames {n_lost}, ATE "
+                             f"{r['ate_m'] * 1e3:.3f} mm, trajectories "
+                             f"{lens}, steps and readbacks {steps}")
+    return n_lost, lens, steps
+
+
+def phase_multi(gm, hm, kb, k1_err, k2_err):
+    """Phase 14a: ``bench --multi 4``'s batched serving, lanes of one
+    pipelined MultiSystem, beside a solo System on lane 0's frames."""
+    import numpy as np
+    from slam_dynamic_tpu_torch import bench
+
+    k1_calls, k2_calls, launched = [], [], [0, 0]
+    per_step = []
+
+    def on_step(ms, i, timed):
+        if timed:
+            per_step.append(gm.batched_launches)
+
+    _zero_batched(gm, hm)
+    t0 = time.perf_counter()
+    r = bench.run_multi(MULTI_LANES, MULTI_FRAMES, seed=SEED,
+                        on_step=on_step,
+                        step_ctx=_recording_steps(kb, k1_calls, k2_calls,
+                                                  launched))
+    launches = _batched_launches(gm, hm)
+    walls = {"run": time.perf_counter() - t0}
+    k1_steps = np.diff(per_step)
+    n_lost, lens, steps = _multi_checks(r, "phase 14a", MULTI_LANES)
+    ms_sorted = np.sort(r["step_ms"])
+    t0 = time.perf_counter()
+    multi_prof = _profiled(lambda: r["step"](MULTI_FRAMES - 1),
+                           PROFILED_STEPS)
+    walls["profiled"] = time.perf_counter() - t0
+    solo = bench.run(MULTI_FRAMES, 1, seed=SEED, warm_frames=14)
+    walls["solo"] = time.perf_counter() - t0 - walls["profiled"]
+    t0 = time.perf_counter()
+    solo_prof = _profiled(lambda: solo["step"](MULTI_FRAMES - 1),
+                          PROFILED_STEPS)
+    walls["solo_profiled"] = time.perf_counter() - t0
+    ate_mm, solo_mm = r["ate_m"] * 1e3, solo["ate_m"] * 1e3
+    log(f"phase 14a bench --multi {MULTI_LANES}: MultiSystem of "
+        f"{MULTI_LANES} lanes, 640x480 RGB-D x {MULTI_FRAMES} frames each "
+        f"(lane b shifted by 3 b frames), one step in flight: aggregate "
+        f"{r['fps']:.2f} fps, per lane {r['per_lane_fps']:.2f} fps over "
+        f"{r['n_timed']} timed steps, step p50 {np.median(ms_sorted):.1f} ms,"
+        f" p90 {ms_sorted[int(len(ms_sorted) * 0.9)]:.1f} ms; LOST frames "
+        f"{n_lost}, trajectories {lens}, lane 0 ATE {ate_mm:.3f} mm (solo "
+        f"System, same frames, one frame in flight: {solo_mm:.3f} mm, "
+        f"{solo['fps']:.2f} fps); batched steps and packet readbacks "
+        f"{steps}; launches {launches}")
+    log(f"  per batched step ({PROFILED_STEPS} steady step under "
+        f"torch.profiler, CUDA activity): {multi_prof['launches']:.0f} "
+        f"launch calls, {multi_prof['kernels']:.0f} kernels and copies on "
+        f"the card, {multi_prof['syncs']:.0f} sync/copy calls, device busy "
+        f"{multi_prof['busy']:.3f}, {multi_prof['wall_ms']:.1f} ms; one "
+        f"lane's frame (the solo System): {solo_prof['launches']:.0f} "
+        f"launch calls, {solo_prof['kernels']:.0f} on the card, "
+        f"{solo_prof['syncs']:.0f} sync/copy calls, busy "
+        f"{solo_prof['busy']:.3f}, {solo_prof['wall_ms']:.1f} ms; batched "
+        f"K1 launches per timed step {sorted(set(k1_steps.tolist()))} (one "
+        f"lane's fused step: 3); wall s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    if abs(ate_mm - solo_mm) > max(1.0, 0.2 * solo_mm) or \
+            set(k1_steps.tolist()) != {3} or min(lens) != MULTI_FRAMES or \
+            min(launches[k] for k in ("gated_match", "hamming_matrix",
+                                      "gated_match_batched")) <= 0:
+        raise AssertionError("multi phase failed its checks")
+    if len(k1_calls) != 3 * RECORD_STEPS or k2_calls or \
+            launched != [len(k1_calls), 0]:
+        raise AssertionError(f"{len(k1_calls)} batched K1 and "
+                             f"{len(k2_calls)} K2 calls kept in "
+                             f"{RECORD_STEPS} steps, {launched} launched")
+    k1_err, k2_err = hold_batched(gm, hm, kb, k1_calls, [], "phase 14a's "
+                                  "steps", k1_err, k2_err)
+    ms_b = kb.calls_ms(gm.gated_match_batched, k1_calls)
+    ms_1 = kb.calls_ms(kb.per_lane(gm.gated_match), k1_calls)
+    plain = kb.calls_ms(gm.gated_match_batched_plain, k1_calls)
+    b_ms, b_by = kb.k1_calls_bound(k1_calls)
+    log(f"  batched K1 on the {len(k1_calls)} calls of the first "
+        f"{RECORD_STEPS} batched steps (B = {MULTI_LANES}): bit-equal with "
+        f"{MULTI_LANES} single launches and plain; device time per batched "
+        f"launch {ms_b:.5f} ms, the {MULTI_LANES} single launches "
+        f"{ms_1:.5f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by},"
+        f" {b_ms / ms_b:.1%} of it reached)")
+    row = dict(name="gated_match_batched", route="cuda",
+               source="slam_dynamic_tpu_torch/csrc/kernels.cu",
+               replaces="slam_dynamic_tpu/ops/pallas_match.py:83",
+               launches=launches["gated_match_batched"],
+               max_abs_err=k1_err, ms=ms_b, plain_ms=plain, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None)
+    return launches, row, k1_err, k2_err
+
+
+def phase_multi_chunk(gm, hm):
+    """Phase 14b: ``bench --multi 2 --chunk 6`` from a cold start."""
+    import numpy as np
+    from slam_dynamic_tpu_torch import bench
+
+    _zero_batched(gm, hm)
+    r = bench.run_multi(MULTI_CHUNK_LANES, MULTI_CHUNK_FRAMES, CHUNK,
+                        seed=SEED)
+    launches = _batched_launches(gm, hm)
+    n_lost, lens, steps = _multi_checks(r, "phase 14b", MULTI_CHUNK_LANES)
+    ms_sorted = np.sort(r["step_ms"])
+    log(f"phase 14b bench --multi {MULTI_CHUNK_LANES} --chunk {CHUNK}: "
+        f"{MULTI_CHUNK_FRAMES} frames a lane from a cold start: aggregate "
+        f"{r['fps']:.2f} fps over {r['n_timed']} timed frames a lane, call "
+        f"p50 {np.median(ms_sorted):.1f} ms, p90 "
+        f"{ms_sorted[int(len(ms_sorted) * 0.9)]:.1f} ms; LOST frames "
+        f"{n_lost}, trajectories {lens}, lane 0 ATE "
+        f"{r['ate_m'] * 1e3:.3f} mm; batched calls and readbacks {steps} "
+        f"(per-frame batches while a lane was not OK, then chunks), "
+        f"launches {launches}")
+    if launches["gated_match_batched"] <= 0 \
+            or min(lens) != MULTI_CHUNK_FRAMES:
+        raise AssertionError("multi chunk phase failed its checks")
+    return launches
+
+
+def phase_multi_stereo(gm, hm, kb, k1_err, k2_err):
+    """Phase 14c: ``track_stereo_batch`` on 2 lanes; K1 and K2 batched."""
+    from slam_dynamic_tpu_torch import bench
+
+    k1_calls, k2_calls, launched = [], [], [0, 0]
+    _zero_batched(gm, hm)
+    r = bench.run_multi(MULTI_CHUNK_LANES, MULTI_STEREO_FRAMES, seed=SEED,
+                        stereo=True,
+                        step_ctx=_recording_steps(kb, k1_calls, k2_calls,
+                                                  launched))
+    launches = _batched_launches(gm, hm)
+    n_lost, lens, _ = _multi_checks(r, "phase 14c", MULTI_CHUNK_LANES)
+    log(f"phase 14c MultiSystem.track_stereo_batch, {MULTI_CHUNK_LANES} "
+        f"lanes x {MULTI_STEREO_FRAMES} frames of the 640x480 stereo pair: "
+        f"LOST frames {n_lost}, trajectories {lens}, lane 0 ATE "
+        f"{r['ate_m'] * 1e3:.3f} mm, launches {launches}")
+    if len(k2_calls) != RECORD_STEPS or launched != [len(k1_calls),
+                                                     len(k2_calls)] \
+            or min(launches.values()) <= 0:
+        raise AssertionError(f"{len(k1_calls)} batched K1 and "
+                             f"{len(k2_calls)} K2 calls kept, {launched} "
+                             f"launched")
+    k1_err, k2_err = hold_batched(gm, hm, kb, k1_calls, k2_calls,
+                                  "phase 14c's steps", k1_err, k2_err)
+    a, b = k2_calls[0]
+    ms_b = kb.device_ms(lambda: hm.hamming_matrix_batched(a, b))
+    ms_1 = kb.device_ms(lambda: kb.per_lane(hm.hamming_matrix)(a, b))
+    plain = kb.device_ms(lambda: hm.hamming_matrix_batched_plain(a, b))
+    b_ms, b_by = kb.k2_bound(a.shape[1], b.shape[1], a.shape[0])
+    log(f"  K1 on the {len(k1_calls)} and K2 on the {len(k2_calls)} "
+        f"batched calls of the first {RECORD_STEPS} batched steps: "
+        f"bit-equal with "
+        f"single launches and plain; K2 at {tuple(a.shape[:2])} x "
+        f"{b.shape[1]}: device time per batched launch {ms_b:.6f} ms, the "
+        f"{a.shape[0]} single launches {ms_1:.6f} ms, plain {plain:.4f} "
+        f"ms, bound {b_ms:.5f} ms ({b_by}, {b_ms / ms_b:.1%} of it "
+        f"reached)")
+    row = dict(name="hamming_matrix_batched", route="cuda",
+               source="slam_dynamic_tpu_torch/csrc/kernels.cu",
+               replaces="slam_dynamic_tpu/ops/pallas_hamming.py:42",
+               launches=launches["hamming_matrix_batched"],
+               max_abs_err=k2_err, ms=ms_b, plain_ms=plain, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None)
+    return launches, row, k1_err, k2_err
+
+
+def phase_depth_stride(gm, hm, frame_ate_mm):
+    """Phase 14d: System.track_rgbd at depth_stride 2 on phase 3's world."""
+    import dataclasses
+    import numpy as np
+    from slam_dynamic_tpu_torch.io.bench_world import bench_world
+    from slam_dynamic_tpu_torch.io.evo import ate_rmse
+    from slam_dynamic_tpu_torch.system import System
+
+    world = bench_world(STRIDE_FRAMES, SEED)
+    seq, cfg = world[0], world[3]
+    system = System(cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, depth_stride=2)))
+    _zero_batched(gm, hm)
+    times, states, n_kf = track_frames(system, world, STRIDE_FRAMES)
+    launches = _batched_launches(gm, hm)
+    est = np.stack([-R.T @ t for _, R, t in system.trajectory])
+    ate_mm = ate_rmse(est, seq.t_wc[:len(est)]) * 1e3
+    n_lost = sum(s != "OK" for s in states)
+    log(f"phase 14d System.track_rgbd depth_stride 2, 640x480 x "
+        f"{STRIDE_FRAMES} frames: p50 {np.median(times) * 1e3:.2f} ms, "
+        f"keyframes {n_kf}, not-OK frames {n_lost}, ATE {ate_mm:.3f} mm "
+        f"(phase 3, stride 1, {N_FRAMES} frames: {frame_ate_mm:.3f} mm), "
+        f"fused dispatches {system.tracker.dispatches}, launches {launches}")
+    if n_lost or ate_mm >= 30.0 or not np.isfinite(est).all() \
+            or system.tracker.dispatches != STRIDE_FRAMES - 1 \
+            or min(launches[k] for k in ("gated_match", "hamming_matrix")) \
+            <= 0:
+        raise AssertionError("depth-stride phase failed its checks")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1747,7 +2087,8 @@ def main():
 
     k1_err = timed("1", phase_k1, dev, gm, kb, hm.INVALID)
     k2_err = timed("2", phase_k2, dev, hm, kb)
-    frame_launches, calls = timed("3", phase_system, gm, hm, kb)
+    frame_launches, calls, frame_ate_mm = timed("3", phase_system, gm, hm,
+                                                kb)
     k1_row = timed("4", phase_k1_path, gm, kb, calls, k1_err)
     chunk_launches = timed("5", phase_chunk, gm, hm, kb)
     dyn_launches, k2_row = timed("6", phase_dynamic_chunk, gm, hm, kb,
@@ -1770,10 +2111,22 @@ def main():
     mono_launches, *errs = timed("11", phase_mono, gm, hm, kb, *errs)
     online_launches, *errs = timed("12", phase_online, gm, hm, kb, *errs)
     cli_launches, *errs = timed("13", phase_cli, gm, hm, kb, *errs)
+    multi_launches, k1b_row, *errs = timed("14a", phase_multi, gm, hm, kb,
+                                           *errs)
+    multi_chunk_launches = timed("14b", phase_multi_chunk, gm, hm)
+    multi_stereo_launches, k2b_row, *errs = timed(
+        "14c", phase_multi_stereo, gm, hm, kb, *errs)
+    stride_launches = timed("14d", phase_depth_stride, gm, hm, frame_ate_mm)
     k1_row["max_abs_err"], k2_row["max_abs_err"] = errs
     log("wall time per phase, s (host clock, world rendering included): "
         + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
         + f"; since the build began {time.perf_counter() - t0:.1f}")
+    phase14 = {"multi": multi_launches, "multi_chunk": multi_chunk_launches,
+               "multi_stereo": multi_stereo_launches,
+               "depth_stride": stride_launches}
+    for r in (k1b_row, k2b_row):
+        r["launches_per_phase"] = {k: v[r["name"]]
+                                   for k, v in phase14.items()}
     rows = [k1_row, k2_row]
     for r in rows:
         r["launches"] = chunk_launches[r["name"]]
@@ -1790,7 +2143,9 @@ def main():
             "track_stereo_dynamic": stereo_dyn_launches[r["name"]],
             "track_mono": mono_launches[r["name"]],
             "track_chunk_online": online_launches[r["name"]],
-            **{k: v[r["name"]] for k, v in cli_launches.items()}}
+            **{k: v[r["name"]] for k, v in cli_launches.items()},
+            **{k: v[r["name"]] for k, v in phase14.items()}}
+    rows += [k1b_row, k2b_row]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_per_phase"]

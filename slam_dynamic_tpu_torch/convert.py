@@ -4,7 +4,8 @@ This system has no learned weights on the tracking path: what a run
 carries is the map, the frames, the box tracker, the ORB pattern and the
 config. These helpers take a JAX ``MapState``
 (``slam_dynamic_tpu/worldmap/state.py:27``) as a dict of numpy arrays
-into the port's ``MapState`` and back, a ``FrameData``
+into the port's ``MapState`` and back (a MultiSystem's stacked [B] map
+too, stacked or lane by lane), a ``FrameData``
 (``frontend/frame.py:25``) likewise (the map's persistent loop edges and
 their cursor ``n_loop`` included), a loop closer's keyframe database
 (``worldmap/kfdb.py:30``), the box tracker's state
@@ -42,6 +43,17 @@ def map_state_from_numpy(arrays: dict, device=None) -> MapState:
             a = a.astype(np.uint32).view(np.int32)
         out[name] = torch.from_numpy(np.array(a)).to(device)  # keeps 0-d
     return MapState(**out)
+
+
+def lane_maps_from_numpy(arrays: dict, device=None) -> list:
+    """A JAX MultiSystem's stacked map (``MultiSystem.maps``: name ->
+    numpy [B, ...]) -> the port's B lane MapStates, lane by lane;
+    ``map_state_from_numpy`` of the same arrays is the port's stack
+    (``parallel/multi_system.py``'s ``maps``)."""
+    lanes = np.asarray(arrays["n_kf"]).shape[0]
+    return [map_state_from_numpy({k: np.asarray(v)[b]
+                                  for k, v in arrays.items()}, device)
+            for b in range(lanes)]
 
 
 def map_state_to_numpy(m: MapState) -> dict:

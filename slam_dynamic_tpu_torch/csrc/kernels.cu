@@ -62,6 +62,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // K1: gated nearest-landmark match (replaces the Pallas kernel
 // slam_dynamic_tpu/ops/pallas_match.py:83 _match_kernel).
 //
+// A batched launch (slam_gated_match_batched) serves B lanes of the same
+// N and M, lane b in blockIdx.z with its arrays at b times their per-lane
+// size: the counterpart of jax.vmap over the pallas_call, which adds a
+// batch axis to its grid.
+//
 // Per keypoint n: over all landmarks m, the Hamming distance of
 // kp_desc[n] and lm_desc[m], with a pair allowed iff
 //   kp_ok[n] & lm_ok[m]
@@ -208,6 +213,20 @@ gated_match_kernel(const uint32_t* __restrict__ kp_desc,
                    int32_t* __restrict__ out_best,
                    int32_t* __restrict__ out_second,
                    int n, int m, int lvl_min, int lvl_max) {
+  // batch lane blockIdx.z of a batched launch (each lane has this n and m)
+  const size_t zn = (size_t)blockIdx.z * n, zm = (size_t)blockIdx.z * m;
+  kp_desc += zn * 8;
+  kp_xy += zn * 2;
+  kp_lvl += zn;
+  kp_ok += zn;
+  lm_desc += zm * 8;
+  lm_uv += zm * 2;
+  lm_radius += zm;
+  lm_lvl += zm;
+  lm_ok += zm;
+  out_idx += zn;
+  out_best += zn;
+  out_second += zn;
   __shared__ __align__(16) uint32_t s_desc[K1_CH][8];
   __shared__ float4 s_geo[K1_CH];   // u, v, r^2 (-inf: gated out), level
   __shared__ uint32_t s_key[K1_CH];  // ((kKeyBias + popc) << 16) + m
@@ -367,7 +386,8 @@ gated_match_kernel(const uint32_t* __restrict__ kp_desc,
 // tile (conflict-free) from which each warp stores whole output rows, 16
 // bytes per lane. Ragged edges are masked; rows whose length is not a
 // multiple of 4 words are stored a word at a time. N = M = 2048 runs 512
-// blocks, one wave at 4 blocks per SM.
+// blocks, one wave at 4 blocks per SM. A batched launch
+// (slam_hamming_batched) puts lane b of B in blockIdx.z, as K1's does.
 // ---------------------------------------------------------------------------
 constexpr int K2_BM = 64;
 constexpr int K2_BN = 128;
@@ -383,6 +403,10 @@ static_assert((K2_BM / 32) * K2_WARPS_N * 32 == K2_THREADS &&
 __global__ void __launch_bounds__(K2_THREADS)
 hamming_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                int32_t* __restrict__ out, int n, int m) {
+  // batch lane blockIdx.z of a batched launch (each lane has this n and m)
+  a += (size_t)blockIdx.z * n * 8;
+  b += (size_t)blockIdx.z * m * 8;
+  out += (size_t)blockIdx.z * n * m;
   __shared__ __align__(16) uint32_t sa[K2_BM][8];
   __shared__ __align__(16) uint32_t sb[K2_BN][8];
   __shared__ int spa[K2_BM];
@@ -468,15 +492,18 @@ hamming_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 
 extern "C" {
 
-int slam_gated_match(const void* kp_desc, const void* kp_xy,
-                     const void* kp_lvl, const void* kp_ok,
-                     const void* lm_desc, const void* lm_uv,
-                     const void* lm_radius, const void* lm_lvl,
-                     const void* lm_ok, void* out_idx, void* out_best,
-                     void* out_second, int n, int m, int lvl_min,
-                     int lvl_max, void* stream) {
-  if (n > 0) {
-    const dim3 grid(K1_S, (n + K1_ROWS - 1) / K1_ROWS);
+// B lanes of slam_gated_match in one launch: lane b's arrays start at b
+// times their per-lane size.
+int slam_gated_match_batched(const void* kp_desc, const void* kp_xy,
+                             const void* kp_lvl, const void* kp_ok,
+                             const void* lm_desc, const void* lm_uv,
+                             const void* lm_radius, const void* lm_lvl,
+                             const void* lm_ok, void* out_idx,
+                             void* out_best, void* out_second, int lanes,
+                             int n, int m, int lvl_min, int lvl_max,
+                             void* stream) {
+  if (lanes > 0 && n > 0) {
+    const dim3 grid(K1_S, (n + K1_ROWS - 1) / K1_ROWS, lanes);
     gated_match_kernel<<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)kp_desc, (const float*)kp_xy,
         (const int32_t*)kp_lvl, (const uint8_t*)kp_ok,
@@ -488,14 +515,35 @@ int slam_gated_match(const void* kp_desc, const void* kp_xy,
   return (int)cudaGetLastError();
 }
 
-int slam_hamming_matrix(const void* a, const void* b, void* out, int n,
-                        int m, void* stream) {
-  if (n > 0 && m > 0) {
-    const dim3 grid((m + K2_BN - 1) / K2_BN, (n + K2_BM - 1) / K2_BM);
+// B lanes of slam_hamming_matrix in one launch: a [B, n, 8], b [B, m, 8],
+// out [B, n, m].
+int slam_hamming_batched(const void* a, const void* b, void* out, int lanes,
+                         int n, int m, void* stream) {
+  if (lanes > 0 && n > 0 && m > 0) {
+    const dim3 grid((m + K2_BN - 1) / K2_BN, (n + K2_BM - 1) / K2_BM, lanes);
     hamming_kernel<<<grid, K2_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (const uint32_t*)b, (int32_t*)out, n, m);
   }
   return (int)cudaGetLastError();
+}
+
+// One lane: the batched launch with B = 1.
+int slam_gated_match(const void* kp_desc, const void* kp_xy,
+                     const void* kp_lvl, const void* kp_ok,
+                     const void* lm_desc, const void* lm_uv,
+                     const void* lm_radius, const void* lm_lvl,
+                     const void* lm_ok, void* out_idx, void* out_best,
+                     void* out_second, int n, int m, int lvl_min,
+                     int lvl_max, void* stream) {
+  return slam_gated_match_batched(kp_desc, kp_xy, kp_lvl, kp_ok, lm_desc,
+                                  lm_uv, lm_radius, lm_lvl, lm_ok, out_idx,
+                                  out_best, out_second, 1, n, m, lvl_min,
+                                  lvl_max, stream);
+}
+
+int slam_hamming_matrix(const void* a, const void* b, void* out, int n,
+                        int m, void* stream) {
+  return slam_hamming_batched(a, b, out, 1, n, m, stream);
 }
 
 }  // extern "C"

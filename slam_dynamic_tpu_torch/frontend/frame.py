@@ -3,9 +3,11 @@
 Port of ``slam_dynamic_tpu/frontend/frame.py`` (``FrameData`` :25,
 ``Frame``, ``keypoints_in_boxes`` :73, ``build_frame`` :88,
 ``empty_frame_data`` :151, ``pad_frame_data`` :163), with
-``inside_boxes``, the one in-box test of the port, and
+``inside_boxes``, the one in-box test of the port,
 ``keypoint_depth``, the depth association of every sensor that
-``build_frame`` and the fused step share. All N keypoint slots are kept
+``build_frame`` and the fused step share, and
+``strided_keypoint_depth``, the fused step's lookup in a strided depth
+upload. All N keypoint slots are kept
 and ``static_mask`` carries the dynamic-box partition, so shapes stay
 fixed. ``build_frame`` serves the frames the tracker builds outside
 the fused step (initialization, LOST frames, the ``mask=`` path and mono
@@ -97,6 +99,21 @@ def keypoint_depth(cam: Intrinsics, image, kp, scale, orb_cfg,
         return (torch.full_like(kp.response, -1.0),
                 torch.full_like(kp.response, -1.0))
     return sm.u_right, sm.depth
+
+
+def strided_keypoint_depth(cam: Intrinsics, depth_map, kp, stride: int):
+    """(u_right, depth) [N] from a depth map (metres) uploaded at every
+    ``stride``-th pixel (``slam_dynamic_tpu/frontend/fused.py:77-85``):
+    sampled at the keypoint's low-resolution pixel, with ``u_right`` in
+    full-resolution pixels; -1 where there is no depth."""
+    hs, ws = depth_map.shape
+    xi = torch.round(kp.xy[:, 0] / stride).to(torch.int64).clamp(0, ws - 1)
+    yi = torch.round(kp.xy[:, 1] / stride).to(torch.int64).clamp(0, hs - 1)
+    d = depth_map[yi, xi]
+    ok = kp.valid & (d > 0)
+    ur = torch.where(ok, kp.xy[:, 0] - cam.bf / torch.where(d <= 0, 1.0, d),
+                     -1.0)
+    return ur, torch.where(ok, d, -1.0)
 
 
 def build_frame(cfg: SystemConfig, cam: Intrinsics, gray: np.ndarray,

@@ -4,7 +4,9 @@ Port of ``slam_dynamic_tpu/frontend/fused.py:54-279``
 (``build_frame_data``, ``_predict_inside``, ``_mm_track``,
 ``_track_stages``, ``fused_track_step``), of temporal chunking
 (``fused_track_chunk`` :328 and ``fused_track_chunk_dyn`` :483 through
-``_chunk_body`` :400) and of the dynamic-scene step
+``_chunk_body`` :400), of lane batching (``fused_track_step_batch`` :287
+and ``fused_track_chunk_batch`` :372, ``torch.func.vmap`` where JAX has
+``jax.vmap``) and of the dynamic-scene step
 (``fused_track_step_dyn`` :536), and of the step on a frame built on the
 host (``fused_track_prebuilt`` :518: after a relocalization and on the
 ``mask=`` path). Per frame:
@@ -41,7 +43,8 @@ from . import tracking_ops as tops
 from .dynamics_ops import (box_3d_state, classify_boxes,
                            reinstate_features)
 from .extractor import extract
-from .frame import FrameData, inside_boxes, keypoint_depth, pad_frame_data
+from .frame import (FrameData, inside_boxes, keypoint_depth,
+                    pad_frame_data, strided_keypoint_depth)
 
 
 class FusedOut(NamedTuple):
@@ -62,14 +65,18 @@ def stereo_residuals(sensor: str) -> bool:
 
 def build_frame_data(cam: Intrinsics, image, aux, boxes, box_active,
                      orb_cfg: ORBConfig, scale_factor, sensor: str = "rgbd",
-                     n_slots: int = 0, depth_scale=None) -> FrameData:
+                     n_slots: int = 0, depth_scale=None,
+                     depth_stride: int = 1) -> FrameData:
     """Device-side frame construction for every sensor. ``aux`` is the
     depth map (``rgbd``), the right image (``stereo``, its own extraction
     and the row-band matcher) or unused (``mono``: no depth). ``image``
     and ``aux`` arrive in camera-native dtypes (uint8 gray, uint16 depth)
     and are cast here, on the device; ``depth_scale`` converts raw depth
-    units to metres. ``u_right`` is in full-resolution pixels. Keypoints
-    inside an active box [B, 4] are quarantined (``static_mask``)."""
+    units to metres. With ``depth_stride`` > 1 the depth map holds every
+    ``depth_stride``-th pixel of the image and is sampled at the
+    keypoint's low-resolution pixel. ``u_right`` is in full-resolution
+    pixels. Keypoints inside an active box [B, 4] are quarantined
+    (``static_mask``)."""
     image = image.to(torch.float32)
     kp = extract(image, orb_cfg)
     xy = undistort_points(cam, kp.xy)
@@ -81,8 +88,11 @@ def build_frame_data(cam: Intrinsics, image, aux, boxes, box_active,
         depth_map = aux.to(torch.float32)
         if depth_scale is not None:
             depth_map = depth_map * depth_scale
-    ur, depth = keypoint_depth(cam, image, kp, scale, orb_cfg, scale_factor,
-                               right, depth_map)
+    if depth_map is not None and depth_stride > 1:
+        ur, depth = strided_keypoint_depth(cam, depth_map, kp, depth_stride)
+    else:
+        ur, depth = keypoint_depth(cam, image, kp, scale, orb_cfg,
+                                   scale_factor, right, depth_map)
     inside = (inside_boxes(xy, boxes) & box_active[:, None]).any(0)
     fd = FrameData(xy=xy, xy_raw=kp.xy, level=kp.level, angle=kp.angle,
                    response=kp.response, desc=kp.desc, valid=kp.valid,
@@ -204,16 +214,18 @@ def fused_track_step(m: MapState, cam: Intrinsics, bounds, image, aux,
                      min_inliers_track, sensor: str = "rgbd",
                      max_kf: int = 16, max_lm: int = 4096,
                      n_levels: int = 8, n_slots: int = 0,
-                     depth_scale=None) -> FusedOut:
+                     depth_scale=None, depth_stride: int = 1) -> FusedOut:
     """The whole per-frame step (``fused.py:255``): aux is the depth map
-    (``rgbd``), the right image (``stereo``) or unused (``mono``);
-    R_prev2/t_prev2 is the pose two frames back and has_vel a 0/1 scalar;
-    ref_kf's pose returns in the packet tail. Depth sensors track with
-    stereo residuals (u, v, u_right)."""
+    (``rgbd``, every ``depth_stride``-th pixel), the right image
+    (``stereo``) or unused (``mono``); R_prev2/t_prev2 is the pose two
+    frames back and has_vel a 0/1 scalar; ref_kf's pose returns in the
+    packet tail. Depth sensors track with stereo residuals (u, v,
+    u_right)."""
     with record_function("frame_build"):
         fd = build_frame_data(cam, image, aux, boxes, box_active, orb_cfg,
                               scale_factor, sensor, n_slots=n_slots,
-                              depth_scale=depth_scale)
+                              depth_scale=depth_scale,
+                              depth_stride=depth_stride)
     R_pred, t_pred = _predict_inside(R_last, t_last, R_prev2, t_prev2,
                                      has_vel)
     return _track_stages(m, cam, bounds, fd, last_obs_lm, R_pred, t_pred,
@@ -283,7 +295,8 @@ def fused_track_step_dyn(m: MapState, cam: Intrinsics, bounds, image, aux,
                          max_kf: int = 16, max_lm: int = 4096,
                          n_levels: int = 8, n_slots: int = 0,
                          n_hyp: int = 256, depth_scale=None,
-                         classify: bool = True) -> FusedOut:
+                         classify: bool = True,
+                         depth_stride: int = 1) -> FusedOut:
     """The dynamic-scene step (``fused.py:536``): frame build with the
     boxes quarantining unless the host found them static (status 1), H/F
     classification of every box against ``ref_fd`` (``classify=False``
@@ -295,7 +308,8 @@ def fused_track_step_dyn(m: MapState, cam: Intrinsics, bounds, image, aux,
         fd = build_frame_data(cam, image, aux, boxes,
                               box_active & (box_status != 1), orb_cfg,
                               scale_factor, sensor, n_slots=n_slots,
-                              depth_scale=depth_scale)
+                              depth_scale=depth_scale,
+                              depth_stride=depth_stride)
     dyn = dict(box_status=box_status, ref_fd=ref_fd, have_ref=have_ref,
                seed=seed, n_hyp=n_hyp)
     fd, verdict = _classify_and_reinstate(cam, fd, boxes, box_active, dyn,
@@ -316,7 +330,7 @@ def fused_track_chunk(m: MapState, cam: Intrinsics, bounds, images, auxs,
                       min_inliers_track, sensor: str = "rgbd",
                       max_kf: int = 16, max_lm: int = 4096,
                       n_levels: int = 8, n_slots: int = 0,
-                      depth_scale=None, dyn=None):
+                      depth_scale=None, dyn=None, depth_stride: int = 1):
     """C consecutive frames in one call (``fused.py:328``, through
     ``_chunk_body`` :400). images, auxs [C, H, W] (auxs as
     ``fused_track_step``'s aux); boxes [C, B, 4]; box_active [C, B].
@@ -340,7 +354,8 @@ def fused_track_chunk(m: MapState, cam: Intrinsics, bounds, images, auxs,
         with record_function("frame_build"):
             fd = build_frame_data(cam, images[j], auxs[j], boxes[j],
                                   quarantine, orb_cfg, scale_factor, sensor,
-                                  n_slots=n_slots, depth_scale=depth_scale)
+                                  n_slots=n_slots, depth_scale=depth_scale,
+                                  depth_stride=depth_stride)
         if dyn is not None:
             # every chunk frame classifies against the chunk-start
             # reference frame; classification sees every box (a static
@@ -371,7 +386,8 @@ def fused_track_chunk_dyn(m: MapState, cam: Intrinsics, bounds, images,
                           sensor: str = "rgbd", max_kf: int = 16,
                           max_lm: int = 4096, n_levels: int = 8,
                           n_slots: int = 0, n_hyp: int = 256,
-                          depth_scale=None, classify_every: int = 1):
+                          depth_scale=None, classify_every: int = 1,
+                          depth_stride: int = 1):
     """Dynamic-scene chunk (``fused.py:483``): ``fused_track_chunk`` with
     each frame's H/F classification against the chunk-start reference
     frame on every ``classify_every``-th chunk frame (the others emit
@@ -384,4 +400,60 @@ def fused_track_chunk_dyn(m: MapState, cam: Intrinsics, bounds, images,
         R_last, t_last, R_prev2, t_prev2, has_vel, ref_kf, orb_cfg,
         mm_radius, local_radius, depth_th, scale_factor, min_inliers_track,
         sensor=sensor, max_kf=max_kf, max_lm=max_lm, n_levels=n_levels,
-        n_slots=n_slots, depth_scale=depth_scale, dyn=dyn)
+        n_slots=n_slots, depth_scale=depth_scale, dyn=dyn,
+        depth_stride=depth_stride)
+
+
+def fused_track_step_batch(m: MapState, cam: Intrinsics, bounds, image, aux,
+                           boxes, box_active, last_obs_lm, R_last, t_last,
+                           R_prev2, t_prev2, has_vel, ref_kf,
+                           orb_cfg: ORBConfig, mm_radius, local_radius,
+                           depth_th, scale_factor, min_inliers_track,
+                           sensor: str = "rgbd", max_kf: int = 16,
+                           max_lm: int = 4096, n_levels: int = 8,
+                           n_slots: int = 0, depth_scale=None,
+                           depth_stride: int = 1) -> FusedOut:
+    """B independent sequences in one batched step (``fused.py:287-322``):
+    ``torch.func.vmap`` of ``fused_track_step`` over a leading [B] axis of
+    the MapState and of every per-frame and recurrent tensor; the camera,
+    bounds and tuning constants are shared. Every op runs once for the B
+    lanes, and kernels K1 and K2 through their vmap rules (one launch
+    with a lane axis), so a step makes about the launches of one lane's
+    frame, not B times them. Returns one FusedOut with a leading [B]
+    axis (packet [B, 28])."""
+    def one(m1, image1, aux1, bx1, ba1, last1, Rl, tl, Rp2, tp2, hv, rkf):
+        return fused_track_step(
+            m1, cam, bounds, image1, aux1, bx1, ba1, last1, Rl, tl, Rp2,
+            tp2, hv, rkf, orb_cfg, mm_radius, local_radius, depth_th,
+            scale_factor, min_inliers_track, sensor=sensor, max_kf=max_kf,
+            max_lm=max_lm, n_levels=n_levels, n_slots=n_slots,
+            depth_scale=depth_scale, depth_stride=depth_stride)
+    return torch.func.vmap(one)(m, image, aux, boxes, box_active,
+                                last_obs_lm, R_last, t_last, R_prev2,
+                                t_prev2, has_vel, ref_kf)
+
+
+def fused_track_chunk_batch(m: MapState, cam: Intrinsics, bounds, images,
+                            auxs, boxes, box_active, last_obs_lm, R_last,
+                            t_last, R_prev2, t_prev2, has_vel, ref_kf,
+                            orb_cfg: ORBConfig, mm_radius, local_radius,
+                            depth_th, scale_factor, min_inliers_track,
+                            sensor: str = "rgbd", max_kf: int = 16,
+                            max_lm: int = 4096, n_levels: int = 8,
+                            n_slots: int = 0, depth_scale=None,
+                            depth_stride: int = 1):
+    """B lanes x C consecutive frames in one batched call
+    (``fused.py:372-401``): ``torch.func.vmap`` of ``fused_track_chunk``
+    (no dynamic branch) over a leading [B] axis; images [B, C, H, W].
+    Returns (the C FusedOut, each with a leading [B] axis, and their
+    packets [B, C, 28] for one readback)."""
+    def one(m1, im, ax, bx1, ba1, last1, Rl, tl, Rp2, tp2, hv, rkf):
+        return fused_track_chunk(
+            m1, cam, bounds, im, ax, bx1, ba1, last1, Rl, tl, Rp2, tp2, hv,
+            rkf, orb_cfg, mm_radius, local_radius, depth_th, scale_factor,
+            min_inliers_track, sensor=sensor, max_kf=max_kf, max_lm=max_lm,
+            n_levels=n_levels, n_slots=n_slots, depth_scale=depth_scale,
+            depth_stride=depth_stride)
+    return torch.func.vmap(one)(m, images, auxs, boxes, box_active,
+                                last_obs_lm, R_last, t_last, R_prev2,
+                                t_prev2, has_vel, ref_kf)

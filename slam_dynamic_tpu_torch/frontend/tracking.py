@@ -38,7 +38,10 @@ resets the map (:866, :878); while the local map yields fewer than
 tracked frame is also relocalized and the relocalized pose preferred
 (:1026-1045), per frame and in a chunk's finalize alike.
 
-Not ported yet: the adaptive pipeline depth.
+With ``depth_stride`` > 1 the fused steps upload every
+``depth_stride``-th depth pixel (``_stage_inputs``, as JAX's
+:238-253, :360-424 and :592-606) and sample it at the keypoint's
+low-resolution pixel. Not ported yet: the adaptive pipeline depth.
 States: NOT_INITIALIZED -> OK <-> LOST.
 """
 from __future__ import annotations
@@ -79,6 +82,10 @@ class TrackStats:
     frame_id: int = -1
     np_R: object = None       # camera pose (host numpy)
     np_t: object = None
+    # MultiSystem's pipelined mode: when a lane event drained the step in
+    # flight early, that step's stats for this lane ride here, so its
+    # keyframe and LOST flags are not lost
+    drained_prev: object = None
 
 
 class _ChunkPacket:
@@ -140,10 +147,10 @@ def _bow_recover(m: MapState, cam, fd: FrameData, k, R0, t0):
 
 class Tracker:
     def __init__(self, cfg: SystemConfig, cam: Intrinsics):
-        if cfg.tracking.adaptive_pipeline or cfg.tracking.depth_stride != 1:
+        if cfg.tracking.adaptive_pipeline:
             raise NotImplementedError(
-                "the adaptive pipeline depth (ROADMAP item 22) and strided "
-                "depth (item 20b) are not ported yet")
+                "the adaptive pipeline depth (ROADMAP item 22) is not "
+                "ported yet")
         self.cfg = cfg
         self.cam = cam
         self.device = cam.fx.device
@@ -231,11 +238,16 @@ class Tracker:
         """Host->device copy of one frame (or a chunk's stack) in
         camera-native dtypes, cast on the device: uint8 gray, the aux as
         it comes (a uint8 right image, float depth), uint16 RGB-D depth
-        as its int16 bit view with the depth scale. ``aux`` None (mono)
-        passes a cached zero image. Returns (gray, aux, depth_scale)."""
+        as its int16 bit view with the depth scale; with ``depth_stride``
+        > 1 only every ``depth_stride``-th depth pixel of each axis goes
+        up. ``aux`` None (mono) passes a cached zero image. Returns
+        (gray, aux, depth_scale)."""
         g = torch.from_numpy(np.ascontiguousarray(gray)).to(self.device)
         if aux is None:
             return g, self._zero_aux(tuple(gray.shape)), None
+        ds = self.cfg.tracking.depth_stride
+        if self.cfg.sensor == "rgbd" and ds > 1:
+            aux = aux[..., ::ds, ::ds]
         aux = np.ascontiguousarray(aux)
         if self.cfg.sensor == "rgbd" and aux.dtype == np.uint16:
             # uint16 travels as its int16 bit view and widens on the device
@@ -286,8 +298,10 @@ class Tracker:
 
     def _track_kwargs(self):
         """The fused steps' arguments: the stages' and the frame build's."""
-        return dict(orb_cfg=self.cfg.orb,
-                    n_slots=self.cfg.capacity.max_keypoints,
+        cfg = self.cfg
+        return dict(orb_cfg=cfg.orb, n_slots=cfg.capacity.max_keypoints,
+                    depth_stride=(cfg.tracking.depth_stride
+                                  if cfg.sensor == "rgbd" else 1),
                     **self._stage_kwargs())
 
     def _ref_at_dispatch(self):

@@ -107,12 +107,15 @@ def bound(bytes_moved: float, tc_ops: float = 0.0, fp32_ops: float = 0.0,
 
 
 def k1_bound(args):
-    """Least time of K1 on these inputs (gated_match's argument list):
-    only the pairs with both ok flags set need a distance and the gates."""
-    n, m = args[0].shape[0], args[4].shape[0]
-    pairs = int(args[3].sum()) * int(args[8].sum())
-    bytes_moved = (n * (32 + 8 + 4 + 1) + m * (32 + 8 + 4 + 4 + 1)
-                   + 3 * n * 4)
+    """Least time of K1 on these inputs (gated_match's argument list, or
+    gated_match_batched's with a leading lane axis): only the pairs with
+    both ok flags set need a distance and the gates."""
+    n, m = args[0].shape[-2], args[4].shape[-2]
+    lanes = args[0].numel() // (n * 8) if n else 1
+    pairs = int((args[3].reshape(lanes, n).sum(1)
+                 * args[8].reshape(lanes, m).sum(1)).sum())
+    bytes_moved = lanes * (n * (32 + 8 + 4 + 1) + m * (32 + 8 + 4 + 4 + 1)
+                           + 3 * n * 4)
     return bound(bytes_moved, tc_ops=2 * 256 * pairs,
                  fp32_ops=K1_FP32_OPS_PER_PAIR * pairs,
                  int32_ops=K1_INT32_OPS_PER_PAIR * pairs)
@@ -127,10 +130,11 @@ def k1_calls_bound(calls):
     return sum(x[0] for x in bounds) / len(bounds), by
 
 
-def k2_bound(n: int, m: int):
-    """Least time of K2 at [n, 8] x [m, 8]: every pair's distance is
-    needed, and the int32 output written once."""
-    return bound(n * 32 + m * 32 + n * m * 4, tc_ops=2 * 256 * n * m)
+def k2_bound(n: int, m: int, lanes: int = 1):
+    """Least time of K2 at [n, 8] x [m, 8] (in each of ``lanes`` lanes):
+    every pair's distance is needed, and the int32 output written once."""
+    return bound(lanes * (n * 32 + m * 32 + n * m * 4),
+                 tc_ops=lanes * 2 * 256 * n * m)
 
 
 def k1_problem(rng, n, m, dup_frac=0.0, dev=None):
@@ -215,6 +219,42 @@ def recording_k2(calls: list, every: bool = False):
     finally:
         dynamics_ops.hamming_matrix = kernel
         hm.hamming_matrix = kernel
+
+
+@contextlib.contextmanager
+def recording_batched(k1_calls: list, k2_calls: list):
+    """Within the block, every batched launch of K1 (the lanes of a
+    vmapped ``gated_match``, through ``gated_match_batched``) appends a
+    copy of its inputs to ``k1_calls`` as ``(args, lvl_min, lvl_max)``,
+    and every batched launch of K2 (``hamming_matrix_batched``) its input
+    pair to ``k2_calls``. The calls themselves run as they would."""
+    from .ops import hamming as hm
+    k1, k2 = gm.gated_match_batched, hm.hamming_matrix_batched
+
+    def record1(*args, lvl_min=-1, lvl_max=1):
+        kept = [a.clone() for a in args]
+        kept[6] = kept[6].to(torch.float32)   # as the wrapper passes it
+        k1_calls.append((kept, lvl_min, lvl_max))
+        return k1(*args, lvl_min=lvl_min, lvl_max=lvl_max)
+
+    def record2(a, b):
+        k2_calls.append((a.clone(), b.clone()))
+        return k2(a, b)
+
+    gm.gated_match_batched, hm.hamming_matrix_batched = record1, record2
+    try:
+        yield
+    finally:
+        gm.gated_match_batched, hm.hamming_matrix_batched = k1, k2
+
+
+def per_lane(fn):
+    """``fn`` (a one-lane kernel wrapper) called lane by lane over the
+    leading axis of its tensor arguments: B single launches."""
+    def lanes(*args, **kw):
+        return [fn(*(a[b] for a in args), **kw)
+                for b in range(args[0].shape[0])]
+    return lanes
 
 
 def path_k1_calls(n_frames: int = PATH_FRAMES, seed: int = 0):

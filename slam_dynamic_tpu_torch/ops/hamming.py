@@ -11,6 +11,9 @@ behind ``use_pallas(True)`` and otherwise forms the same matrix as a
 bipolar int8 matmul; the port launches K2 for every Hamming matrix of a
 CUDA tensor (fusion and triangulation on keyframes). What bounds it on the
 H100 and what its design does about that: see ``csrc/kernels.cu``.
+``hamming_matrix`` is a ``torch.library`` custom op whose vmap rule makes
+the lanes of a vmapped call (the stereo matcher of the batched tracking
+step) ONE launch of K2 with a lane axis (``hamming_matrix_batched``).
 
 Descriptors are [rows, 8] int32, the bit view of the reference's uint32
 lanes. ``INVALID = 1 << 15`` marks gated-out pairs; every top-2 here keeps
@@ -26,8 +29,10 @@ from . import kernels
 
 INVALID = 1 << 15
 
-# Launches of kernel K2 (one per CUDA call of hamming_matrix).
+# Launches of kernel K2: one per CUDA call of hamming_matrix, one per
+# batched launch (the batched ones are also counted in batched_launches).
 launches = 0
+batched_launches = 0
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -49,31 +54,76 @@ def hamming_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def hamming_matrix_plain(desc_a: torch.Tensor,
                          desc_b: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K2: [N, M] int32, XOR + popcount per word."""
-    acc = torch.zeros((desc_a.shape[0], desc_b.shape[0]), dtype=torch.int32,
-                      device=desc_a.device)
-    for w in range(8):
-        acc += popcount32(torch.bitwise_xor(desc_a[:, w, None],
-                                            desc_b[None, :, w]))
+    acc = popcount32(torch.bitwise_xor(desc_a[:, 0, None], desc_b[None, :, 0]))
+    for w in range(1, 8):
+        acc = acc + popcount32(torch.bitwise_xor(desc_a[:, w, None],
+                                                 desc_b[None, :, w]))
     return acc
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     """Full [N, M] int32 Hamming matrix of [N, 8] x [M, 8] int32
     descriptors: kernel K2 on a CUDA tensor, its plain version on a CPU
-    tensor."""
+    tensor. Under ``torch.func.vmap`` the lanes go to
+    ``hamming_matrix_batched`` together."""
+    return _hamming_matrix_op(desc_a, desc_b)
+
+
+@torch.library.custom_op("slam_dynamic_tpu_torch::hamming_matrix",
+                         mutates_args=())
+def _hamming_matrix_op(desc_a: torch.Tensor,
+                       desc_b: torch.Tensor) -> torch.Tensor:
     if desc_a.device.type == "cpu":
         return hamming_matrix_plain(desc_a, desc_b)
-    global launches
+    return _launch_k2(desc_a, desc_b)
+
+
+def _hamming_matrix_vmap(info, in_dims, desc_a, desc_b):
+    """vmap rule of the op: the lanes' calls as one
+    ``hamming_matrix_batched`` (an unbatched side shared by every lane)."""
+    a, b = (kernels.lane_major(x, d, info.batch_size)
+            for x, d in zip((desc_a, desc_b), in_dims))
+    return hamming_matrix_batched(a, b), 0
+
+
+torch.library.register_vmap("slam_dynamic_tpu_torch::hamming_matrix",
+                            _hamming_matrix_vmap)
+
+
+def hamming_matrix_batched_plain(desc_a: torch.Tensor,
+                                 desc_b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched K2: ``hamming_matrix_plain`` lane by
+    lane, [B, N, M] int32."""
+    return torch.stack([hamming_matrix_plain(a, b)
+                        for a, b in zip(desc_a, desc_b)])
+
+
+def hamming_matrix_batched(desc_a: torch.Tensor,
+                           desc_b: torch.Tensor) -> torch.Tensor:
+    """[B, N, M] int32 Hamming matrices of [B, N, 8] x [B, M, 8] int32
+    descriptors: ONE launch of K2 with a lane axis on CUDA tensors, the
+    plain version on CPU tensors."""
+    if desc_a.device.type == "cpu":
+        return hamming_matrix_batched_plain(desc_a, desc_b)
+    return _launch_k2(desc_a, desc_b)
+
+
+def _launch_k2(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """One launch of K2's batched entry point on CUDA tensors: one lane
+    ([N, 8] x [M, 8], B = 1) or B lanes ([B, N, 8] x [B, M, 8])."""
+    global launches, batched_launches
     dev = desc_a.device
-    n, m = desc_a.shape[0], desc_b.shape[0]
-    kernels.require(desc_a, "desc_a", torch.int32, (n, 8), dev, 16)
-    kernels.require(desc_b, "desc_b", torch.int32, (m, 8), dev, 16)
-    out = torch.empty((n, m), dtype=torch.int32, device=dev)
-    status = kernels.lib().slam_hamming_matrix(
-        desc_a.data_ptr(), desc_b.data_ptr(), out.data_ptr(), n, m,
-        kernels.stream_handle(dev))
+    lanes = desc_a.shape[:-2]
+    n, m = desc_a.shape[-2], desc_b.shape[-2]
+    kernels.require(desc_a, "desc_a", torch.int32, lanes + (n, 8), dev, 16)
+    kernels.require(desc_b, "desc_b", torch.int32, lanes + (m, 8), dev, 16)
+    out = torch.empty(lanes + (n, m), dtype=torch.int32, device=dev)
+    status = kernels.lib().slam_hamming_batched(
+        desc_a.data_ptr(), desc_b.data_ptr(), out.data_ptr(),
+        lanes[0] if lanes else 1, n, m, kernels.stream_handle(dev))
     kernels.check(status, "hamming_matrix")
     launches += 1
+    batched_launches += bool(lanes)
     return out
 
 

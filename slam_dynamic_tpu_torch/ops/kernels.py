@@ -32,6 +32,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "slam_gated_match": [_P] * 12 + [_I] * 4 + [_P],
     "slam_hamming_matrix": [_P, _P, _P, _I, _I, _P],
+    "slam_gated_match_batched": [_P] * 12 + [_I] * 5 + [_P],
+    "slam_hamming_batched": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -70,12 +72,14 @@ def build(source: Path = SOURCE) -> Path:
 
 def load(so: Path) -> ctypes.CDLL:
     """Load a kernel library built by ``build`` and declare its entry
-    points."""
+    points (those it has: an earlier revision's library, which
+    ``kernel_bench --old-source`` builds, may lack the batched ones)."""
     handle = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(handle, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn = getattr(handle, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return handle
 
 
@@ -111,3 +115,11 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: not contiguous")
     if t.data_ptr() % align:
         raise ValueError(f"{name}: address not aligned to {align} bytes")
+
+
+def lane_major(t: torch.Tensor, in_dim, lanes: int) -> torch.Tensor:
+    """An argument of a vmap rule with its lane axis first and contiguous:
+    a batched one (``in_dim`` its lane axis) moved there, an unbatched one
+    (``in_dim`` None) repeated for every lane."""
+    t = t.expand(lanes, *t.shape) if in_dim is None else t.movedim(in_dim, 0)
+    return t.contiguous()

@@ -64,6 +64,7 @@ def test_importing_the_port_loads_no_jax():
             "slam_dynamic_tpu_torch.viz.headless, "
             "slam_dynamic_tpu_torch.viz.ar, "
             "slam_dynamic_tpu_torch.parallel.sharded_ba, "
+            "slam_dynamic_tpu_torch.parallel.multi_system, "
             "slam_dynamic_tpu_torch.backend.global_ba, "
             "slam_dynamic_tpu_torch.io.rosbag, "
             "slam_dynamic_tpu_torch.io.live, "

@@ -505,3 +505,83 @@ def test_global_ba_on_card_matches_cpu(cuda_device):
     for f, tol in (("kf_R", 1e-4), ("kf_t", 1e-4), ("lm_pos", 1e-3)):
         assert (getattr(c, f) - getattr(g, f).cpu()).abs().max() < tol, f
     assert (c.kf_t - live.kf_t).abs().max() > 1e-3       # the solve moved
+
+
+def _lane_stack(per):
+    return [torch.stack(x) for x in zip(*per)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,m,dup", [(4, 2048, 2048, 0.3),
+                                           (4, 2048, 4096, 0.1),
+                                           (3, 300, 700, 0.1), (2, 1, 5, 0.0)])
+def test_k1_batched_equals_single_launches_on_card(cuda_device, lanes, n, m,
+                                                   dup):
+    """One launch of K1 with a lane axis: bit-equal with B single launches
+    and with the plain per-lane loop, idx included."""
+    rng = np.random.default_rng(lanes * n + m)
+    per = [_torch(_problem(rng, n, m, dup), cuda_device)
+           for _ in range(lanes)]
+    args = _lane_stack(per)
+    before, batched = gm.launches, gm.batched_launches
+    got = gm.gated_match_batched(*args)
+    assert (gm.launches, gm.batched_launches) == (before + 1, batched + 1)
+    plain = gm.gated_match_batched_plain(*args)
+    assert all(torch.equal(k, p) for k, p in zip(got, plain))
+    for b in range(lanes):
+        single = gm.gated_match(*per[b])
+        assert all(torch.equal(k[b], s) for k, s in zip(got, single))
+
+
+@pytest.mark.cuda
+def test_k1_vmap_is_one_batched_launch_on_card(cuda_device):
+    """Under torch.func.vmap the custom op's rule makes one batched
+    launch, also with an argument shared by every lane."""
+    rng = np.random.default_rng(3)
+    per = [_torch(_problem(rng, 2048, 2048, 0.2), cuda_device)
+           for _ in range(4)]
+    args = _lane_stack(per)
+    before = gm.launches
+    got = torch.func.vmap(gm.gated_match)(*args)
+    shared = torch.func.vmap(gm.gated_match, in_dims=(0,) * 4 + (None,) * 5)(
+        *args[:4], *per[0][4:])
+    assert gm.launches == before + 2
+    plain = gm.gated_match_batched_plain(*args)
+    assert all(torch.equal(k, p) for k, p in zip(got, plain))
+    plain = gm.gated_match_batched_plain(
+        *args[:4], *(a.expand(4, *a.shape) for a in per[0][4:]))
+    assert all(torch.equal(k, p) for k, p in zip(shared, plain))
+
+
+@pytest.mark.cuda
+def test_k1_batched_above_landmark_limit_on_card(cuda_device):
+    """Above MAX_LANDMARKS the batched form runs one batched launch per
+    landmark range and merges them exactly."""
+    rng = np.random.default_rng(5)
+    m = gm.MAX_LANDMARKS + 300
+    per = [_torch(_problem(rng, 64, m, 0.2), cuda_device) for _ in range(2)]
+    args = _lane_stack(per)
+    before = gm.launches
+    got = gm.gated_match_batched(*args)
+    assert gm.launches == before + 2
+    plain = gm.gated_match_batched_plain(*args)
+    assert all(torch.equal(k, p) for k, p in zip(got, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,m", [(2, 1000, 1000), (4, 2048, 2048),
+                                       (3, 300, 170), (2, 1, 1)])
+def test_k2_batched_equals_single_launches_on_card(cuda_device, lanes, n, m):
+    rng = np.random.default_rng(lanes + n + m)
+    a = torch.stack(_torch([_desc(rng, n) for _ in range(lanes)],
+                           cuda_device))
+    b = torch.stack(_torch([_desc(rng, m) for _ in range(lanes)],
+                           cuda_device))
+    before, batched = hm.launches, hm.batched_launches
+    got = hm.hamming_matrix_batched(a, b)
+    vm = torch.func.vmap(hm.hamming_matrix)(a, b)
+    assert (hm.launches, hm.batched_launches) == (before + 2, batched + 2)
+    assert torch.equal(got, hm.hamming_matrix_batched_plain(a, b))
+    assert torch.equal(vm, got)
+    for i in range(lanes):
+        assert torch.equal(got[i], hm.hamming_matrix(a[i], b[i]))

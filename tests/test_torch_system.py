@@ -250,21 +250,22 @@ def test_unported_options_raise(change):
         # the stereo sensor is ported (test_torch_stereo.py); an unported
         # option of a stereo System still raises
         cfg = cfg.replace(sensor="stereo", tracking=dataclasses.replace(
-            cfg.tracking, depth_stride=2))
+            cfg.tracking, adaptive_pipeline=True))
     elif change == "detector":
         # precomputed boxes and the online detector are ported
         # (test_torch_online_system.py); an unported option of an
         # online-detector System still raises
         cfg = cfg.replace(
             detector=dataclasses.replace(cfg.detector, mode="online"),
-            tracking=dataclasses.replace(cfg.tracking, depth_stride=2))
+            tracking=dataclasses.replace(cfg.tracking,
+                                         adaptive_pipeline=True))
     elif change == "global_ba":
         # the global BA is ported (test_torch_global_ba.py); an unported
         # option of a System running it still raises
         cfg = cfg.replace(loop=dataclasses.replace(cfg.loop,
                                                    run_global_ba=True),
                           tracking=dataclasses.replace(cfg.tracking,
-                                                       depth_stride=2))
+                                                       adaptive_pipeline=True))
     elif change == "text_vocabulary":
         cfg = cfg.replace(vocabulary=dataclasses.replace(
             cfg.vocabulary, path="ORBvoc.txt"))
@@ -272,7 +273,7 @@ def test_unported_options_raise(change):
         cfg = cfg.replace(tracking=dataclasses.replace(
             cfg.tracking, pipeline_depth=1, adaptive_pipeline=True))
     with pytest.raises(NotImplementedError,
-                       match="item 20" if change in ("global_ba", "stereo")
+                       match="item 22" if change in ("global_ba", "stereo")
                        else None):
         System(cfg, device="cpu")
 
