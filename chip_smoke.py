@@ -145,7 +145,7 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      track_rgbd's on the same decoded frames).
   14. batched serving and strided depth, each path with its own launch
      counts: (a) ``python -m slam_dynamic_tpu_torch.bench --multi 4``'s
-     run, a pipelined MultiSystem of 4 lanes on 60 frames of the bench
+     run, a pipelined MultiSystem of 4 lanes on 32 frames of the bench
      world each (lane b shifted by 3 b frames): aggregate and per-lane
      fps, step p50 and p90, no LOST frame in any lane, lane 0's ATE under
      30 mm and within max(1 mm, 20%) of a solo System on the same frames
@@ -155,13 +155,32 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      batched K1 launches in every timed step, as one lane's fused step
      makes; the batched K1 calls of the first 3 steps held bit-equal with
      4 single launches and the plain version, timed beside them;
-     (b) ``--multi 2 --chunk 6`` on 48 frames from a cold start (per-frame
+     (b) ``--multi 2 --chunk 6`` on 30 frames from a cold start (per-frame
      batches until every lane is OK, then chunks); (c)
-     ``MultiSystem.track_stereo_batch`` on 2 lanes x 20 frames of the
+     ``MultiSystem.track_stereo_batch`` on 2 lanes x 18 frames of the
      stereo pair, K1 and K2 batched, held on the first 3 steps' calls and
      K2's batched launch timed; (d) System.track_rgbd with
-     ``depth_stride=2`` on 30 frames of phase 3's world, its ATE beside
+     ``depth_stride=2`` on 20 frames of phase 3's world, its ATE beside
      phase 3's.
+  15. the distributed layer and the rest of item 22, each path with its
+     own launch counts: (a) ``MultiSystem(mesh=)``, 4 lanes of the bench
+     world (lane b shifted by 3 b frames) over a 2-entry "dp" mesh whose
+     entries are both the card, 20 steps with one in flight, beside the
+     unsharded MultiSystem on the same frames: the same LOST and keyframe
+     decisions lane by lane, each lane's ATE within max(1 mm, 20%), the
+     batched K1 launches per call, and the batched K1 and K2 calls of
+     steps 1-3 held bit-equal; (b) the sharded solvers across processes
+     on the card (``tests/port_shards.py``): the edge-sharded pose graph
+     on a drifting ring of 256 poses and the landmark-sharded BA on 16
+     keyframes x 1024 landmarks, both built with numpy from the seed,
+     over 2 ranks through gloo on CUDA tensors and over 1 rank through
+     NCCL: ms per GN iteration, all-reduces per iteration and their
+     bytes, the solutions within 1e-3 in R and 5e-3 in t of the
+     single-process solve; (c) System.track_rgbd with one frame in
+     flight and ``adaptive_pipeline``, then with ``prefetch_next=``, 30
+     frames each: no LOST frame, ATE under 30 mm, the frames run deeper,
+     fps beside the direct path's in this call, K1 and K2 held on the
+     first 6 frames' calls.
 
 Kernel, plain and library times are device times (CUDA-graph replay
 between CUDA events, slam_dynamic_tpu_torch/kernel_bench.py), each beside
@@ -169,10 +188,11 @@ the least time the card could take for the same work; K2's row takes
 its times from phase 6's inputs. It then prints the wall time of each
 phase, the kernel table as one JSON line (``launches`` is phase 5's
 count, the main path's; ``launches_per_phase`` adds phases 3, 6, 7, 8,
-8c, 8b, 9, 10, 10b, 11, 12, the four paths of 13 and the four of 14; the
-batched launches of K1 and K2 have rows of their own, ``launches`` there
-phase 14a's and 14c's) and, last, the result line. Any failed check
-raises, and a hang ends in a traceback and a nonzero exit after 1100 s.
+8c, 8b, 9, 10, 10b, 11, 12, the four paths of 13, the four of 14 and the
+three of 15; the batched launches of K1 and K2 have rows of their own,
+``launches`` there phase 14a's and 14c's) and, last, the result line. Any
+failed check raises, and a hang ends in a traceback and a nonzero exit
+after 1100 s.
 """
 import contextlib
 import faulthandler
@@ -252,12 +272,23 @@ CLI_SKIP = 10
 LOCALIZE_FRAMES = 8
 BAG_FRAMES = 10
 MULTI_LANES = 4
-MULTI_FRAMES = 60
+# phases 14a-d run 32, 30, 18 and 20 frames (60, 48, 20 and 30 before
+# phase 15 was added), so that it fits the script's time (PERF.md,
+# section 4)
+MULTI_FRAMES = 32
 MULTI_CHUNK_LANES = 2
-MULTI_CHUNK_FRAMES = 48
-MULTI_STEREO_FRAMES = 20
-STRIDE_FRAMES = 30
+MULTI_CHUNK_FRAMES = 30
+MULTI_STEREO_FRAMES = 18
+STRIDE_FRAMES = 20
 RECORD_STEPS = 3        # batched steps whose K1 and K2 calls are kept
+# phase 15: MultiSystem(mesh=), the sharded solvers across processes (the
+# pose graph of __graft_entry__.py's ring, the BA of
+# tests/test_distributed.py), the adaptive pipeline depth and prefetch
+MESH_LANES = 4
+MESH_FRAMES = 20
+SHARD_POSES = 256
+SHARD_KF, SHARD_LM, SHARD_OBS = 16, 1024, 12288
+ADAPTIVE_FRAMES = 30
 PROFILED_STEPS = 1
 
 
@@ -1492,16 +1523,23 @@ def check_detector_on_card(frames):
         raise AssertionError("detector maps: card and CPU disagree")
 
 
-def parity_driver():
-    """``tests/port_drive.py``, the driver the CPU parity tests run (it
-    imports no JAX), loaded by path."""
+def _tests_path(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        name + ".py")
+
+
+def _tests_module(name: str):
+    """A module of ``tests/`` that imports no JAX, loaded by path."""
     import importlib.util
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "port_drive.py")
-    spec = importlib.util.spec_from_file_location("port_drive", path)
+    spec = importlib.util.spec_from_file_location(name, _tests_path(name))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def parity_driver():
+    """``tests/port_drive.py``, the driver the CPU parity tests run."""
+    return _tests_module("port_drive")
 
 
 def phase_online(gm, hm, kb, k1_err, k2_err):
@@ -2044,6 +2082,268 @@ def phase_depth_stride(gm, hm, frame_ate_mm):
         raise AssertionError("depth-stride phase failed its checks")
     return launches
 
+def _lane_frames(a, i, lanes, frames):
+    """Step i's frames of ``lanes`` lanes, lane b shifted by 3 b frames
+    (``bench --multi``'s layout)."""
+    return [a[max(0, min(i - 3 * b, frames - 1))] for b in range(lanes)]
+
+
+def _drive_lanes(world, mesh, k1_calls=None, k2_calls=None):
+    """A pipelined MultiSystem of MESH_LANES lanes over ``mesh`` (None:
+    unsharded) on MESH_FRAMES steps; the batched calls of steps 1 to
+    RECORD_STEPS kept when lists are given. Returns the MultiSystem, each
+    lane's (state, keyframe) decisions, each lane's ATE in mm, the
+    batched K1 launches of each call, and the wall seconds."""
+    import numpy as np
+    import torch
+    from slam_dynamic_tpu_torch.io.evo import ate_rmse
+    from slam_dynamic_tpu_torch.ops import gated_match as gm
+    from slam_dynamic_tpu_torch.parallel.multi_system import MultiSystem
+    from slam_dynamic_tpu_torch import kernel_bench as kb
+
+    seq, gray8, depth16, cfg = world
+    n, F = MESH_LANES, MESH_FRAMES
+    ts = np.asarray(seq.timestamps, np.float64)
+    ms = MultiSystem(cfg, n, pipeline=True, mesh=mesh)
+    rows, per_call = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(F):
+        rec = k1_calls is not None and 1 <= i <= RECORD_STEPS
+        before = gm.batched_launches
+        with kb.recording_batched(k1_calls, k2_calls) if rec \
+                else contextlib.nullcontext():
+            rows.append(ms.track_rgbd_batch(
+                *(_lane_frames(a, i, n, F) for a in (gray8, depth16, ts))))
+        per_call.append(gm.batched_launches - before)
+    rows.append(ms.flush())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decisions, ates = [], []
+    for b, s in enumerate(ms.systems):
+        decisions.append([(r[b].state, r[b].is_keyframe) for r in rows
+                          if r is not None and r[b] is not None])
+        est = np.stack([-R.T @ t for _, R, t in s.trajectory])
+        gt = seq.t_wc[[max(0, min(i - 3 * b, F - 1)) for i in range(F)]]
+        if not np.isfinite(est).all() or len(est) != F:
+            raise AssertionError(f"lane {b}: trajectory {est.shape}")
+        ates.append(ate_rmse(est, gt) * 1e3)
+    return ms, decisions, ates, per_call, wall
+
+
+def phase_mesh(gm, hm, kb, k1_err, k2_err):
+    """Phase 15a: MultiSystem(mesh=), 4 lanes over a 2-entry "dp" mesh
+    (both entries the one card), beside the unsharded MultiSystem on the
+    same frames."""
+    from slam_dynamic_tpu_torch.io.bench_world import bench_world
+    from slam_dynamic_tpu_torch.parallel.mesh import make_mesh
+
+    world = bench_world(MESH_FRAMES, SEED)
+    _, dec_1, ate_1, per_1, wall_1 = _drive_lanes(world, None)
+    mesh = make_mesh(2, "dp", devices=["cuda:0", "cuda:0"])
+    k1_calls, k2_calls = [], []
+    _zero_batched(gm, hm)
+    ms, dec_m, ate_m, per_m, wall_m = _drive_lanes(world, mesh, k1_calls,
+                                                   k2_calls)
+    launches = _batched_launches(gm, hm)
+    n_lost = sum(st == "LOST" for d in dec_m for st, _ in d)
+    steady = sorted(set(per_m[RECORD_STEPS + 1:]))
+    log(f"phase 15a MultiSystem(mesh=): {MESH_LANES} lanes of the 640x480 "
+        f"bench world over {mesh} (lanes {[list(g.lanes) for g in ms.groups]}"
+        f"), {MESH_FRAMES} steps, one in flight: LOST frames {n_lost}, "
+        f"keyframes per lane {[sum(k for _, k in d) for d in dec_m]} "
+        f"(unsharded {[sum(k for _, k in d) for d in dec_1]}), ATE per lane "
+        f"mm {[round(a, 3) for a in ate_m]} (unsharded "
+        f"{[round(a, 3) for a in ate_1]}); batched K1 launches per call "
+        f"{steady} after step {RECORD_STEPS} (unsharded "
+        f"{sorted(set(per_1[RECORD_STEPS + 1:]))}); group steps and packet "
+        f"readbacks {(ms.dispatches, ms.packet_reads)}; wall s {wall_m:.1f} "
+        f"(unsharded {wall_1:.1f}); launches {launches}")
+    if dec_m != dec_1 or n_lost or any(
+            abs(a - b) > max(1.0, 0.2 * b) for a, b in zip(ate_m, ate_1)) \
+            or ms.dispatches != ms.packet_reads \
+            or launches["gated_match_batched"] <= 0:
+        raise AssertionError("mesh phase failed its checks")
+    if not k1_calls:
+        raise AssertionError("no batched K1 call kept")
+    k1_err, k2_err = hold_batched(gm, hm, kb, k1_calls, k2_calls,
+                                  "phase 15a's steps", k1_err, k2_err)
+    log(f"  batched K1 on the {len(k1_calls)} and K2 on the "
+        f"{len(k2_calls)} calls of steps 1-{RECORD_STEPS}: bit-equal with "
+        f"single launches and plain")
+    return launches, k1_err, k2_err
+
+
+def phase_sharded_solvers():
+    """Phase 15b: the sharded pose graph and BA across processes on the
+    one card (2 ranks through gloo on CUDA tensors, 1 rank through NCCL),
+    each solution held to the single-process solve."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+
+    ps = _tests_module("port_shards")
+    d = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    try:
+        src = os.path.join(d, "problems.npz")
+        np.savez(src, **ps.problem_arrays(
+            ps.drifting_ring(SHARD_POSES, 2),
+            ps.ba_problem(SEED, SHARD_KF, SHARD_LM, 2, SHARD_OBS)))
+        dev = torch.device("cuda", 0)
+        with np.load(src) as z:
+            pg, ba = ps.load_problems(z, dev)
+        ref = ps.solve(1, pg, ba, dev, torch.cuda.synchronize)
+        log(f"phase 15b single process: pose graph K = {SHARD_POSES} "
+            f"{ref['pg_ms_per_iter']:.2f} ms per GN iteration, BA "
+            f"{SHARD_KF} keyframes x {SHARD_LM} landmarks "
+            f"{ref['ba_ms_per_iter']:.2f} ms per GN iteration")
+        # the two ranks of the gloo run; rank 0 then runs the NCCL one
+        runs = ((2, "gloo"), (1, "nccl"))
+        prefix = os.path.join(d, "run")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, _tests_path("port_shards"), str(r), "cuda:0",
+             src, prefix] + [f"{b}:{w}" for w, b in runs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=300)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0])
+        wall = time.perf_counter() - t0
+        for world, backend in runs:
+            for r, (p, out) in enumerate(zip(procs[:world], outs)):
+                if p.returncode != 0 or \
+                        f"OK rank {r} of {world} ({backend}" not in out:
+                    raise AssertionError(f"{backend} rank {r} failed:\n"
+                                         + out[-4000:])
+            z = np.load(f"{prefix}.{backend}.npz")
+            d_R = float(np.abs(z["pg_R"] - ref["pg_R"].cpu().numpy()).max())
+            d_t = float(np.abs(z["ba_t"] - ref["ba_t"].cpu().numpy()).max())
+            d_p = float(np.abs(z["ba_pts"]
+                               - ref["ba_pts"].cpu().numpy()).max())
+            log(f"  {world} rank(s) through {backend} on CUDA tensors: pose "
+                f"graph {float(z['pg_ms_per_iter']):.2f} ms per GN "
+                f"iteration, {float(z['pg_allreduces_per_iter']):g} "
+                f"all-reduces per iteration of "
+                f"{z['pg_allreduce_bytes'].tolist()} bytes, max |dR| "
+                f"{d_R:.2e}; BA {float(z['ba_ms_per_iter']):.2f} ms per GN "
+                f"iteration, {float(z['ba_allreduces_per_iter']):g} "
+                f"all-reduces per iteration of "
+                f"{z['ba_allreduce_bytes'].tolist()} bytes (gathers of "
+                f"{z['ba_gather_bytes'].tolist()} bytes after them), max "
+                f"|dt| {d_t:.2e} (points {d_p:.2e}); a rank's own blocks "
+                f"alone against the whole problem's slices: max |dt| "
+                f"{float(z['local_dt']):.2e} (points "
+                f"{float(z['local_dp']):.2e})")
+            if d_R >= 1e-3 or d_t >= 5e-3 or float(z["local_dt"]) >= 5e-3 \
+                    or float(z["pg_allreduces_per_iter"]) != 2 \
+                    or float(z["ba_allreduces_per_iter"]) != 2:
+                raise AssertionError(f"sharded solvers over {backend} "
+                                     "failed their checks")
+        log(f"  both runs' processes: wall {wall:.1f} s")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _track_in_flight(world, cfg, adaptive=False, prefetch=False,
+                     rec=None):
+    """System.track_rgbd on ADAPTIVE_FRAMES frames with one frame in
+    flight; K1 and K2 recorded over the first RECORD_FRAMES frames when
+    ``rec`` is given; fps over the frames after them. Returns the stats,
+    the readiness answers of the adaptive depth, fps and ATE in mm."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from slam_dynamic_tpu_torch import kernel_bench as kb
+    from slam_dynamic_tpu_torch.io.evo import ate_rmse
+    from slam_dynamic_tpu_torch.ops import gated_match as gm
+    from slam_dynamic_tpu_torch.ops import hamming as hm
+    from slam_dynamic_tpu_torch.system import System
+
+    seq, gray8, depth16, _ = world
+    system = System(cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, pipeline_depth=1, adaptive_pipeline=adaptive)))
+    answers = []
+    ready = system.tracker._packet_ready
+
+    def counted(out):
+        answers.append(ready(out))
+        return answers[-1]
+    system.tracker._packet_ready = counted
+    n = ADAPTIVE_FRAMES
+    frames = [(gray8[i], depth16[i]) for i in range(n)] + [None]
+    stats = []
+    for i in range(n):
+        if i == RECORD_FRAMES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ctx = contextlib.nullcontext()
+        if rec is not None and i < RECORD_FRAMES:
+            l1, l2 = gm.launches, hm.launches
+            ctx = contextlib.ExitStack()
+            ctx.enter_context(kb.recording_k1(rec["k1"]))
+            ctx.enter_context(kb.recording_k2(rec["k2"], every=True))
+        with ctx:
+            stats.append(system.track_rgbd(
+                *frames[i], float(seq.timestamps[i]),
+                prefetch_next=frames[i + 1] if prefetch else None))
+        if rec is not None and i < RECORD_FRAMES:
+            rec["launched"][0] += gm.launches - l1
+            rec["launched"][1] += hm.launches - l2
+    stats += system.tracker.drain()
+    torch.cuda.synchronize()
+    fps = (n - RECORD_FRAMES) / (time.perf_counter() - t0)
+    est = np.stack([-R.T @ t for _, R, t in system.trajectory])
+    if len(est) != n or not np.isfinite(est).all():
+        raise AssertionError(f"trajectory {est.shape}")
+    return stats, answers, fps, ate_rmse(est, seq.t_wc[:n]) * 1e3
+
+
+def phase_adaptive_prefetch(gm, hm, k1_err, k2_err):
+    """Phase 15c: the adaptive pipeline depth, then prefetch_next=, each
+    beside the direct path (one frame in flight) in this call."""
+    from slam_dynamic_tpu_torch.io.bench_world import bench_world
+
+    world = bench_world(ADAPTIVE_FRAMES, SEED)
+    cfg = world[3]
+    _, _, direct_fps, direct_mm = _track_in_flight(world, cfg)
+    out = {}
+    for name, kw in (("adaptive", dict(adaptive=True)),
+                     ("prefetch", dict(prefetch=True))):
+        rec = dict(k1=[], k2=[], launched=[0, 0])
+        _zero_batched(gm, hm)
+        stats, answers, fps, ate_mm = _track_in_flight(world, cfg, rec=rec,
+                                                       **kw)
+        out[name] = _batched_launches(gm, hm)
+        n_lost = sum(st.state == "LOST" for st in stats)
+        log(f"phase 15c {name}: System.track_rgbd 640x480 x "
+            f"{ADAPTIVE_FRAMES} frames, one in flight"
+            + (", adaptive_pipeline" if kw.get("adaptive") else
+               ", prefetch_next=") + f": LOST frames {n_lost}, ATE "
+            f"{ate_mm:.3f} mm, {fps:.2f} fps over frames "
+            f"{RECORD_FRAMES}-{ADAPTIVE_FRAMES - 1} (the direct path in this "
+            f"call: {direct_fps:.2f} fps, {direct_mm:.3f} mm); readiness "
+            f"polls {len(answers)}, frames run deeper {answers.count(False)};"
+            f" launches {out[name]}")
+        if n_lost or ate_mm >= 30.0 or min(
+                out[name][k] for k in ("gated_match", "hamming_matrix")) <= 0 \
+                or (kw.get("adaptive") and not answers):
+            raise AssertionError(f"{name} phase failed its checks")
+        n1, n2 = len(rec["k1"]), len(rec["k2"])
+        if [n1, n2] != rec["launched"] or not n1:
+            raise AssertionError(f"{name}: {n1} K1 and {n2} K2 calls kept, "
+                                 f"{rec['launched']} launched")
+        k1_err = hold_k1(gm, rec["k1"], f"phase 15c {name}", k1_err)
+        k2_err = hold_k2(hm, rec["k2"], f"phase 15c {name}", k2_err)
+        log(f"  K1 on the {n1} calls and K2 on the {n2} calls of the first "
+            f"{RECORD_FRAMES} frames: bit-equal with plain")
+    return out, k1_err, k2_err
+
 
 def main():
     import torch
@@ -2117,16 +2417,21 @@ def main():
     multi_stereo_launches, k2b_row, *errs = timed(
         "14c", phase_multi_stereo, gm, hm, kb, *errs)
     stride_launches = timed("14d", phase_depth_stride, gm, hm, frame_ate_mm)
+    mesh_launches, *errs = timed("15a", phase_mesh, gm, hm, kb, *errs)
+    timed("15b", phase_sharded_solvers)
+    paths15, *errs = timed("15c", phase_adaptive_prefetch, gm, hm, *errs)
     k1_row["max_abs_err"], k2_row["max_abs_err"] = errs
     log("wall time per phase, s (host clock, world rendering included): "
         + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
         + f"; since the build began {time.perf_counter() - t0:.1f}")
-    phase14 = {"multi": multi_launches, "multi_chunk": multi_chunk_launches,
-               "multi_stereo": multi_stereo_launches,
-               "depth_stride": stride_launches}
+    lane_phases = {"multi": multi_launches,
+                   "multi_chunk": multi_chunk_launches,
+                   "multi_stereo": multi_stereo_launches,
+                   "depth_stride": stride_launches, "mesh": mesh_launches,
+                   **paths15}
     for r in (k1b_row, k2b_row):
         r["launches_per_phase"] = {k: v[r["name"]]
-                                   for k, v in phase14.items()}
+                                   for k, v in lane_phases.items()}
     rows = [k1_row, k2_row]
     for r in rows:
         r["launches"] = chunk_launches[r["name"]]
@@ -2144,7 +2449,7 @@ def main():
             "track_mono": mono_launches[r["name"]],
             "track_chunk_online": online_launches[r["name"]],
             **{k: v[r["name"]] for k, v in cli_launches.items()},
-            **{k: v[r["name"]] for k, v in phase14.items()}}
+            **{k: v[r["name"]] for k, v in lane_phases.items()}}
     rows += [k1b_row, k2b_row]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

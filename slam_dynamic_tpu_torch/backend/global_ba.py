@@ -7,8 +7,11 @@ and ``merge`` :148), the reference's Optimizer::GlobalBundleAdjustemnt
 and the merge of LoopClosing::RunGlobalBundleAdjustment. The solve is
 the landmark-sharded GN of ``parallel/sharded_ba.py``: one shard unless
 ``n_devices`` asks for the multi-shard layout, which then runs shard
-after shard on the map's device. Everything runs on the device of the
-map it is given.
+after shard on the map's device, or ``mesh`` lays the shards out over a
+``Mesh`` (where JAX's ``_build_problem`` :29 calls ``make_mesh``): over
+``distributed.global_mesh()`` every rank, holding the same map, solves
+its own landmarks and the ranks sum their systems by all-reduce.
+Everything runs on the device of the map it is given.
 """
 from __future__ import annotations
 
@@ -18,19 +21,23 @@ import numpy as np
 import torch
 
 from ..parallel import sharded_ba as sba
+from ..parallel.mesh import Mesh
 from ..utils.camera import Intrinsics
 from ..worldmap.state import MapState
 
 
 def _build_problem(m: MapState, cam: Intrinsics, stereo: bool,
-                   n_devices: Optional[int], scale_factor: float):
-    """The map at this instant as a landmark-sharded BA problem. Its one
-    readback (the observation table, for the host partition) is the only
-    wait for the device."""
+                   n_devices: Optional[int], scale_factor: float,
+                   mesh: Optional[Mesh] = None):
+    """The map at this instant as a landmark-sharded BA problem over
+    ``mesh`` (else ``n_devices`` shards, else one). Its one readback (the
+    observation table, for the host partition) is the only wait for the
+    device."""
     dev = m.kf_R.device
     K, N = m.kf_obs_lm.shape
     L = m.lm_pos.shape[0]
-    n_shards = 1 if n_devices is None else n_devices
+    n_shards = (mesh.shape["lm"] if mesh is not None
+                else 1 if n_devices is None else n_devices)
     Lp = -(-L // n_shards) * n_shards
     O = K * N
     Oc = -(-O // n_shards) * n_shards
@@ -84,12 +91,13 @@ def _build_problem(m: MapState, cam: Intrinsics, stereo: bool,
 
 def global_bundle_adjust(m: MapState, cam: Intrinsics, stereo: bool = True,
                          iters: int = 15, n_devices: Optional[int] = None,
-                         scale_factor: float = 1.2) -> MapState:
+                         scale_factor: float = 1.2,
+                         mesh: Optional[Mesh] = None) -> MapState:
     """Global BA over every valid keyframe and landmark, written back."""
     problem, n_shards, K, L, Lp, Oc = _build_problem(
-        m, cam, stereo, n_devices, scale_factor)
-    run = sba.make_sharded_ba(n_shards, cam, K=K, L=Lp, O=Oc, stereo=stereo,
-                              iters=iters)
+        m, cam, stereo, n_devices, scale_factor, mesh)
+    run = sba.make_sharded_ba(n_shards if mesh is None else mesh, cam, K=K,
+                              L=Lp, O=Oc, stereo=stereo, iters=iters)
     kf_R, kf_t, pts = run(problem)
     return m._replace(
         kf_R=torch.where(m.kf_valid[:, None, None], kf_R, m.kf_R),
@@ -112,12 +120,13 @@ class AmortizedGBA:
     def __init__(self, m: MapState, cam: Intrinsics, stereo: bool,
                  total_iters: int = 15, slice_iters: int = 3,
                  n_devices: Optional[int] = None,
-                 scale_factor: float = 1.2):
+                 scale_factor: float = 1.2, mesh: Optional[Mesh] = None):
         self.cam = cam
         self.problem, n_shards, K, L, Lp, Oc = _build_problem(
-            m, cam, stereo, n_devices, scale_factor)
-        self.run = sba.make_sharded_ba(n_shards, cam, K=K, L=Lp, O=Oc,
-                                       stereo=stereo, iters=slice_iters)
+            m, cam, stereo, n_devices, scale_factor, mesh)
+        self.run = sba.make_sharded_ba(n_shards if mesh is None else mesh,
+                                       cam, K=K, L=Lp, O=Oc, stereo=stereo,
+                                       iters=slice_iters)
         self.L = L
         self.remaining = total_iters
         self.slice_iters = slice_iters

@@ -4,7 +4,7 @@ JAX package with no arguments.
     python -m slam_dynamic_tpu_torch.bench [--frames 120] [--chunk 6]
         [--stereo] [--dynamic [--classify-every 2]] [--multi N]
         [--depth-stride S] [--no-pipeline | --pipeline-depth D]
-        [--eager-finalize] [--ate] [--cpu]
+        [--eager-finalize] [--ate] [--budget S] [--cpu]
 
 The synthetic 640x480 RGB-D world with 1000 ORB features and the
 capacities of ``bench.py:250-261``, with its default pipelined readback
@@ -38,6 +38,11 @@ uploads every S-th depth pixel (RGB-D); ``--pipeline-depth D`` (default
 1) sets the frames or chunks in flight and ``--no-pipeline`` none;
 ``--eager-finalize`` finalizes a chunk before the next is dispatched;
 ``--ate`` reports the ATE as the metric (``bench.py --ate``).
+``--budget S`` (default 420, or ``BENCH_BUDGET_S``; ``bench.py``'s
+watchdog, :41 and :144-150): when S seconds pass before the run ends, a
+watchdog thread prints the partial result line (the fps of the timed
+frames so far, or an error line when fewer than 5 were timed) and exits
+with 0.
 """
 from __future__ import annotations
 
@@ -45,8 +50,11 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import sys
+import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -123,6 +131,59 @@ def drive_per_frame(system, world, n_frames: int, dynamic: bool = False,
                 first_ok=states.index("OK") if "OK" in states else None)
 
 
+class Progress:
+    """The timed window of a run so far, read by the budget watchdog."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.t_timed0 = None      # perf_counter at the timed window's start
+        self.frames = 0           # timed frames tracked (all lanes)
+        self.done = False
+
+    def start(self, t0: float):
+        with self.lock:
+            self.t_timed0 = t0
+
+    def add(self, frames: int):
+        with self.lock:
+            self.frames += frames
+
+
+def partial_line(args, progress: Progress) -> Optional[dict]:
+    """The result line of a run cut by its budget (None when it ended):
+    the fps of the timed frames so far, or an error line when fewer than
+    5 were timed."""
+    with progress.lock:
+        if progress.done:
+            return None
+        n, t0 = progress.frames, progress.t_timed0
+    if t0 is None or n < 5:
+        return {"metric": "tracked frames/s (640x480, full SLAM)",
+                "value": 0.0, "unit": "fps", "vs_baseline": 0.0,
+                "error": f"budget of {args.budget} s: fewer than 5 timed "
+                         f"frames ({n}) completed"}
+    fps = n / (time.perf_counter() - t0)
+    lanes = max(args.multi, 1)
+    out = result_line(argparse.Namespace(**{**vars(args), "ate": False}),
+                      dict(fps=fps, ate_m=float("nan"),
+                           per_lane_fps=fps / lanes))
+    out.pop("ate_m")
+    out["metric"] += f" (partial: budget of {args.budget} s hit)"
+    out["partial_frames"] = n
+    return out
+
+
+def _watchdog(args, progress: Progress, exit=os._exit):
+    """At the budget: print the partial line and end the process."""
+    line = partial_line(args, progress)
+    if line is None:
+        return
+    print(f"[bench] budget of {args.budget} s hit: partial result",
+          file=sys.stderr, flush=True)
+    print(json.dumps(line), flush=True)
+    exit(0)
+
+
 def _with_tracking(cfg, **kw):
     return cfg.replace(tracking=dataclasses.replace(cfg.tracking, **kw))
 
@@ -132,14 +193,17 @@ def run(frames: int = 120, chunk: int = 6, device=None, seed: int = 0,
         dynamic: bool = False, classify_every: int = 2,
         on_step=None, stereo: bool = False,
         pipeline_depth: int = PIPELINE_DEPTH, depth_stride: int = 1,
-        eager_finalize: bool = False, warm_frames: int = 10) -> dict:
+        eager_finalize: bool = False, warm_frames: int = 10,
+        progress: Optional[Progress] = None) -> dict:
     """Track the bench world and time it. ``warm_chunk`` is a context manager
     factory entered around warm chunk (or warm frame) number
     ``warm_index``; ``on_step(system, stats)`` is called after every step
     with the stats it finalized, outside the timed span; the per-frame
     path warms ``warm_frames`` frames. Returns the System, the stats of
     every frame, the timed steps' host times, fps, ATE and ``step(i)``,
-    which tracks one more step from frame i."""
+    which tracks one more step from frame i. ``progress`` gets the timed
+    window as it goes (for the budget watchdog)."""
+    progress = progress or Progress()
     seq, gray8, aux, cfg = bench_world(
         frames, seed, dynamic=dynamic, sensor="stereo" if stereo else "rgbd")
     cfg = _with_tracking(cfg, pipeline_depth=pipeline_depth,
@@ -188,10 +252,12 @@ def run(frames: int = 120, chunk: int = 6, device=None, seed: int = 0,
     _sync(system)
     step_s = []
     t0 = time.perf_counter()
+    progress.start(t0)
     while i + C <= frames:
         f0 = time.perf_counter()
         i, new = step(i)
         step_s.append(time.perf_counter() - f0)
+        progress.add(C)
         if on_step:
             on_step(system, new)
     stats.extend(system.tracker.drain())
@@ -210,7 +276,8 @@ def run(frames: int = 120, chunk: int = 6, device=None, seed: int = 0,
 
 def run_multi(n: int, frames: int = 60, chunk: int = 1, device=None,
               seed: int = 0, stereo: bool = False, depth_stride: int = 1,
-              on_step=None, step_ctx=None) -> dict:
+              on_step=None, step_ctx=None,
+              progress: Optional[Progress] = None) -> dict:
     """Batched serving (``bench.py``'s ``_run_multi``): ``n`` lanes of one
     pipelined MultiSystem on the bench world, lane b phase-shifted by
     3 b frames, ``chunk`` frames per lane and call. ``on_step(ms, i,
@@ -218,7 +285,9 @@ def run_multi(n: int, frames: int = 60, chunk: int = 1, device=None,
     timed span; ``step_ctx(k)``, when given, is a context manager entered
     around the k-th step. Returns the MultiSystem, the stats of every
     step, the timed steps' host times, aggregate and per-lane fps, lane
-    0's ATE and ``step(i)``, which runs one more step from frame i."""
+    0's ATE and ``step(i)``, which runs one more step from frame i;
+    ``progress`` as ``run``'s."""
+    progress = progress or Progress()
     seq, gray8, aux, cfg = bench_world(
         frames, seed, sensor="stereo" if stereo else "rgbd")
     cfg = _with_tracking(cfg, depth_stride=depth_stride)
@@ -264,10 +333,12 @@ def run_multi(n: int, frames: int = 60, chunk: int = 1, device=None,
     _sync(ms.systems[0])
     step_s = []
     t0 = time.perf_counter()
+    progress.start(t0)
     while i + C <= frames:
         f0 = time.perf_counter()
         i = step(i)
         step_s.append(time.perf_counter() - f0)
+        progress.add(C * n)
         if on_step:
             on_step(ms, i - C, True)
     stats.append(ms.flush())
@@ -313,6 +384,10 @@ def main(argv=None) -> int:
                          "next")
     ap.add_argument("--ate", action="store_true",
                     help="report the ATE as the metric")
+    ap.add_argument("--budget", type=float,
+                    default=float(os.environ.get("BENCH_BUDGET_S", "420")),
+                    help="seconds after which a watchdog prints the "
+                         "partial result line and exits")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the plain PyTorch path)")
     args = ap.parse_args(argv)
@@ -324,16 +399,27 @@ def main(argv=None) -> int:
         ap.error("--chunk and --depth-stride must be >= 1, "
                  "--pipeline-depth >= 0")
     device = "cpu" if args.cpu else None
-    if args.multi > 1:
-        r = run_multi(args.multi, args.frames, args.chunk, device=device,
-                      stereo=args.stereo, depth_stride=args.depth_stride)
-    else:
-        r = run(args.frames, args.chunk, device=device,
-                dynamic=args.dynamic, classify_every=args.classify_every,
-                stereo=args.stereo,
-                pipeline_depth=args.pipeline_depth if args.pipeline else 0,
-                depth_stride=args.depth_stride,
-                eager_finalize=args.eager_finalize)
+    progress = Progress()
+    watchdog = threading.Timer(args.budget, _watchdog, (args, progress))
+    watchdog.daemon = True
+    watchdog.start()
+    try:
+        if args.multi > 1:
+            r = run_multi(args.multi, args.frames, args.chunk,
+                          device=device, stereo=args.stereo,
+                          depth_stride=args.depth_stride, progress=progress)
+        else:
+            r = run(args.frames, args.chunk, device=device,
+                    dynamic=args.dynamic,
+                    classify_every=args.classify_every, stereo=args.stereo,
+                    pipeline_depth=(args.pipeline_depth if args.pipeline
+                                    else 0),
+                    depth_stride=args.depth_stride,
+                    eager_finalize=args.eager_finalize, progress=progress)
+    finally:
+        with progress.lock:
+            progress.done = True
+        watchdog.cancel()
     ms = np.sort(r["step_ms"])
     what = "frame" if args.chunk == 1 else f"chunk (={args.chunk} frames)"
     if args.multi > 1:

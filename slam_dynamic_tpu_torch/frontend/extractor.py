@@ -1,13 +1,14 @@
 """ORB feature extraction: pyramid -> FAST -> uniform selection ->
 orientation -> rBRIEF.
 
-Port of ``slam_dynamic_tpu/frontend/extractor.py:35-104``: the per-level
+Port of ``slam_dynamic_tpu/frontend/extractor.py:35-117``: the per-level
 budgets, the unrolled per-level path (``config.py:53``
 ``batched_levels=False``, the default) and the batched-over-levels path
 (``batched_levels=True``, ``ops/orb_batched.py``: one set of launches
 for all levels, for about 3x the pixel work). Output is a fixed-capacity
 ``Keypoints`` struct (n_features slots + validity mask) in level-0
-pixels.
+pixels. ``extract_np`` (:114) is the host entry: a numpy image in, on the
+card unless ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..config import ORBConfig
 from ..ops import fast, orb, orb_batched, pyramid
 
@@ -64,3 +66,11 @@ def extract(image: torch.Tensor, cfg: ORBConfig) -> Keypoints:
                       torch.full(resp.shape, l, dtype=torch.int32,
                                  device=image.device), desc, valid))
     return Keypoints(*(torch.cat([p[i] for p in parts]) for i in range(6)))
+
+
+def extract_np(image: np.ndarray, cfg: ORBConfig, device=None) -> Keypoints:
+    """Host entry: a uint8 or float [H, W] numpy image, extracted on the
+    card unless ``device="cpu"``."""
+    img = torch.as_tensor(np.asarray(image, np.float32),
+                          device=resolve_device(device))
+    return extract(img, cfg)

@@ -101,21 +101,30 @@ def normal_equations(problem: PoseGraphProblem, s, R, t):
     return H, b, ((r ** 2).sum(-1) * w).sum()
 
 
-def optimize_pose_graph(problem: PoseGraphProblem, iters: int = 20,
-                        fix_scale: bool = True):
-    """Damped Gauss-Newton on the essential graph. Returns (s, R, t) per
-    keyframe; fixed and invalid vertices keep their poses."""
+def edge_error(problem: PoseGraphProblem, s, R, t):
+    """The weighted squared residual summed over the graph's edges."""
+    ei, ej = problem.e_i.long(), problem.e_j.long()
+    r = edge_residual(_gather(s, R, t, ei), _gather(s, R, t, ej),
+                      (problem.e_s, problem.e_R, problem.e_t))
+    w = problem.e_valid.to(r.dtype) * problem.e_weight
+    return ((r ** 2).sum(-1) * w).sum()
+
+
+def damped_gn(problem: PoseGraphProblem, iters: int, fix_scale: bool,
+              system, error):
+    """The damped Gauss-Newton loop on the vertices of ``problem``:
+    ``system(s, R, t)`` gives (H [7K, 7K], b [7K], error) and
+    ``error(s, R, t)`` the error after a step (the edge-sharded solver
+    sums both across its shards). Fixed and invalid vertices keep their
+    poses."""
     K = problem.s.shape[0]
     dev = problem.s.device
     free = (problem.valid & ~problem.fixed).to(problem.s.dtype)
     free7 = free.repeat_interleave(7)
-    meas = (problem.e_s, problem.e_R, problem.e_t)
-    w = problem.e_valid.to(problem.s.dtype) * problem.e_weight
-    ei, ej = problem.e_i.long(), problem.e_j.long()
     s, R, t = problem.s, problem.R, problem.t
     lam = torch.tensor(1e-4, dtype=s.dtype, device=dev)
     for _ in range(iters):
-        H, b, e_old = normal_equations(problem, s, R, t)
+        H, b, e_old = system(s, R, t)
         H = H * (free7[:, None] * free7[None, :])
         # LM damping on each block's diagonal; fixed and invalid vertices
         # get an identity block
@@ -125,11 +134,19 @@ def optimize_pose_graph(problem: PoseGraphProblem, iters: int = 20,
             dx = torch.cat([dx[:, :6], torch.zeros_like(dx[:, 6:])], 1)
         dx = dx * free[:, None]
         s2, R2, t2 = s3.sim3_compose(*s3.sim3_exp(dx), s, R, t)
-        r2 = edge_residual(_gather(s2, R2, t2, ei), _gather(s2, R2, t2, ej),
-                           meas)
-        good = ((r2 ** 2).sum(-1) * w).sum() < e_old
+        good = error(s2, R2, t2) < e_old
         s = torch.where(good, s2, s)
         R = torch.where(good, R2, R)
         t = torch.where(good, t2, t)
         lam = torch.where(good, lam * 0.5, lam * 4.0)
     return s, R, t
+
+
+def optimize_pose_graph(problem: PoseGraphProblem, iters: int = 20,
+                        fix_scale: bool = True):
+    """Damped Gauss-Newton on the essential graph. Returns (s, R, t) per
+    keyframe; fixed and invalid vertices keep their poses."""
+    return damped_gn(
+        problem, iters, fix_scale,
+        lambda s, R, t: normal_equations(problem, s, R, t),
+        lambda s, R, t: edge_error(problem, s, R, t))

@@ -18,11 +18,19 @@ copy, and writes the result back (``_map_dirty`` marks a lane whose
 System map is newer than its row of the stack). A lane read is always a
 copy, never a view of the stack.
 
-Differences by design from the JAX package: a localization-only lane's
+With ``mesh=`` (a ``parallel/mesh.py`` Mesh; JAX's :78, :99-101 and
+``_put`` :125-131, the "dp" layout) the lanes are split into contiguous
+groups, one per device of the mesh's "dp" axis. Each group keeps its own
+stacked ``MapState`` and batched recurrent state on its device, and its
+lanes' Systems live there. A call dispatches every group's batched step
+before it reads any group's packet, so the devices overlap, then reads
+each group's [B_g, 28] packet and runs the lanes' host state machines as
+without a mesh. ``mesh=None`` is one group of all the lanes.
+
+A difference by design from the JAX package: a localization-only lane's
 relocalizer result is sliced to its first four values, as the single
 Tracker does (the JAX MultiSystem unpacks four of the five values and
-raises); a device mesh (``mesh=``, the "dp" layout) is ROADMAP item 20c
-and raises here.
+raises).
 """
 from __future__ import annotations
 
@@ -65,6 +73,31 @@ def _csrc_refresh(vis, fnd, mvis, mfnd, idx: torch.Tensor):
             fnd.index_copy(0, idx, mfnd.index_select(0, idx)))
 
 
+class _LaneGroup:
+    """The lanes [start, stop) on one device: their stacked map, their
+    batched recurrent state and the counter chain of their dispatches."""
+
+    def __init__(self, index: int, lanes: range, device, maps):
+        self.index = index
+        self.lanes = lanes
+        self.device = device
+        self.n = len(lanes)
+        self.maps = maps                 # stacked MapState [n_g, ...]
+        self.lane_idx = [torch.tensor([j], device=device)
+                         for j in range(self.n)]
+        self.ref_kf_batch = None   # (lane ref-KF tuple, device [n_g])
+        # the recurrent tracking state, batched on the device between
+        # steps (last_ids, R_last, t_last, R_p2, t_p2, has_vel: [n_g, ...]);
+        # a steady step touches it with no per-lane work
+        self.bst = None
+        self.ones = None
+        self.bmask_cache = None
+        # landmark-counter chain of the dispatches: in pipelined mode the
+        # step in flight's output counters feed the next dispatch, so the
+        # counts accumulate C_i = C_{i-1} + b_i
+        self.csrc = None                 # (lm_visible, lm_found)
+
+
 class MultiSystem:
     """Track B sequences with one batched device step per frame:
     ``MultiSystem(cfg, n).track_rgbd_batch(grays, depths, timestamps)``
@@ -77,14 +110,12 @@ class MultiSystem:
     ``pipeline=True`` the batch itself is pipelined one step deep, so
     each call returns the previous step's stats while this step runs.
     Call ``flush`` (or ``trajectories``) before reading trajectories.
+    ``mesh``: lay the lanes out over the devices of its ``dp_axis``, in
+    contiguous groups (``device`` is then ignored).
     """
 
     def __init__(self, cfg: SystemConfig, n: int, pipeline: bool = False,
-                 device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "MultiSystem(mesh=...): lanes laid out over a device mesh "
-                "are ROADMAP item 20c, not ported yet")
+                 device=None, mesh=None, dp_axis: str = "dp"):
         if cfg.detector.mode != "off":
             raise ValueError("MultiSystem batches the static-scene path; "
                              "run dynamic scenes on per-lane Systems")
@@ -93,68 +124,81 @@ class MultiSystem:
         self.cfg = cfg
         self.n = n
         self.pipeline = pipeline
+        self.mesh = mesh
         self._pending = None
-        self.systems: List[System] = [System(cfg, device=device)
-                                      for _ in range(n)]
+        if mesh is None:
+            devices, bounds = [device], [0, n]
+        else:
+            devices = mesh.axis_devices(dp_axis)
+            if n < len(devices):
+                raise ValueError(f"{n} lanes over {len(devices)} devices")
+            bounds = [g * n // len(devices) for g in range(len(devices) + 1)]
+        self.systems: List[System] = []
+        self.groups: List[_LaneGroup] = []
+        self._group_of: List[_LaneGroup] = []
+        for g, dev in enumerate(devices):
+            lanes = range(bounds[g], bounds[g + 1])
+            systems = [System(cfg, device=dev) for _ in lanes]
+            # the group's maps as ONE stacked MapState (its batched step's
+            # input)
+            maps = type(systems[0].tracker.map)(
+                *[torch.stack(xs) for xs in
+                  zip(*[s.tracker.map for s in systems])])
+            grp = _LaneGroup(g, lanes, systems[0].device, maps)
+            self.systems += systems
+            self.groups.append(grp)
+            self._group_of += [grp] * len(lanes)
         self.device = self.systems[0].device
-        # the B maps as ONE stacked MapState (the batched step's input)
-        self.maps = type(self.systems[0].tracker.map)(
-            *[torch.stack(xs) for xs in
-              zip(*[s.tracker.map for s in self.systems])])
-        self._map_dirty = [False] * n     # lane map newer than self.maps
-        self._lane_idx = [torch.tensor([b], device=self.device)
-                          for b in range(n)]
-        self._ref_kf_batch = None   # (lane ref-KF tuple, device [n])
-        # recurrent tracking state kept batched on the device between
-        # steps (last_ids, R_last, t_last, R_p2, t_p2, has_vel: [n, ...]);
-        # a steady step touches it with no per-lane work
-        self._bst = None
+        self._map_dirty = [False] * n     # lane map newer than its stack
         self._np_last = [None] * n   # (np_R, np_t) per lane, for velocity
-        self._bmask_cache = None
-        # landmark-counter chain of the dispatches: in pipelined mode the
-        # step in flight's output counters feed the next dispatch, so the
-        # counts accumulate C_i = C_{i-1} + b_i
-        self._csrc = None            # (lm_visible, lm_found)
-        # batched device steps and their packet readbacks (equal once
-        # flushed)
+        # batched device steps (one per call, whatever the group count)
+        # and their packet readbacks (equal once flushed)
         self.dispatches = 0
         self.packet_reads = 0
+
+    def _lane(self, b: int):
+        """(lane b's group, its index in the group)."""
+        g = self._group_of[b]
+        return g, b - g.lanes.start
 
     # ------------------------------------------------------------------
     def _sync_lane_to_batch(self, b: int):
         if self._map_dirty[b]:
+            g, j = self._lane(b)
             m = self.systems[b].tracker.map
-            self.maps = _write_lane(self.maps, m, self._lane_idx[b])
+            g.maps = _write_lane(g.maps, m, g.lane_idx[j])
             self._map_dirty[b] = False
-            if self._csrc is not None:
+            if g.csrc is not None:
                 # the counter chain restarts from the lane's new map row
                 # (new landmarks' counters; a per-frame step's bumps)
-                self._csrc = _csrc_refresh(
-                    self._csrc[0], self._csrc[1], self.maps.lm_visible,
-                    self.maps.lm_found, self._lane_idx[b])
+                g.csrc = _csrc_refresh(g.csrc[0], g.csrc[1],
+                                       g.maps.lm_visible, g.maps.lm_found,
+                                       g.lane_idx[j])
 
     def _materialize_lane(self, b: int):
-        """tracker.map <- a copy of maps[b]."""
+        """tracker.map <- a copy of lane b's row of its group's stack."""
+        g, j = self._lane(b)
         tr = self.systems[b].tracker
-        tr.map = _read_lane(self.maps, b)
+        tr.map = _read_lane(g.maps, j)
         tr._kf_pose_cache.clear()
 
     def _patch_lane_state(self, b: int):
         """Write lane b's per-frame tracker state into the batched state
         (on lane events only: a rejoin, a relocalization)."""
         tr = self.systems[b].tracker
-        st = self._bst
-        idx = self._lane_idx[b]
+        g, j = self._lane(b)
+        st = g.bst
+        idx = g.lane_idx[j]
         lf = tr.last_frame
         ids = lf.obs_lm if lf.obs_lm is not None else torch.full(
             (self.cfg.capacity.max_keypoints,), -1, dtype=torch.int32,
-            device=self.device)
+            device=g.device)
         p2 = tr._prev2_pose
         rows = {"last_ids": ids, "R_last": lf.R, "t_last": lf.t,
                 "R_p2": p2[0] if p2 is not None else lf.R,
                 "t_p2": p2[1] if p2 is not None else lf.t,
                 "has_vel": torch.tensor(0.0 if p2 is None else 1.0,
-                                        device=self.device)}
+                                        device=g.device)}
         for k, v in rows.items():
             st[k] = st[k].index_copy(0, idx, v.to(st[k].dtype)[None])
         self._np_last[b] = (
@@ -164,43 +208,46 @@ class MultiSystem:
             else lf.t.cpu().numpy())
 
     def _init_bstate(self):
-        n, N, dev = self.n, self.cfg.capacity.max_keypoints, self.device
-        self._bst = {
-            "last_ids": torch.full((n, N), -1, dtype=torch.int32,
-                                   device=dev),
-            "R_last": torch.eye(3, device=dev).repeat(n, 1, 1),
-            "t_last": torch.zeros((n, 3), device=dev),
-            "R_p2": torch.eye(3, device=dev).repeat(n, 1, 1),
-            "t_p2": torch.zeros((n, 3), device=dev),
-            "has_vel": torch.zeros(n, device=dev),
-        }
-        self._ones = torch.ones(n, device=dev)
+        N = self.cfg.capacity.max_keypoints
+        for g in self.groups:
+            n, dev = g.n, g.device
+            g.bst = {
+                "last_ids": torch.full((n, N), -1, dtype=torch.int32,
+                                       device=dev),
+                "R_last": torch.eye(3, device=dev).repeat(n, 1, 1),
+                "t_last": torch.zeros((n, 3), device=dev),
+                "R_p2": torch.eye(3, device=dev).repeat(n, 1, 1),
+                "t_p2": torch.zeros((n, 3), device=dev),
+                "has_vel": torch.zeros(n, device=dev),
+            }
+            g.ones = torch.ones(n, device=dev)
 
-    def _ref_kf_dev(self):
-        """(lane reference-KF tuple, its device [n] int64), rebuilt only
-        when a lane's reference keyframe changed."""
-        ref_ks = tuple(max(s.tracker.last_kf_id, 0) for s in self.systems)
-        if self._ref_kf_batch is None or self._ref_kf_batch[0] != ref_ks:
-            self._ref_kf_batch = (ref_ks, torch.tensor(
-                ref_ks, dtype=torch.int64, device=self.device))
-        return self._ref_kf_batch
+    def _ref_kf_dev(self, g: _LaneGroup):
+        """(the group's lane reference-KF tuple, its device [n_g] int64),
+        rebuilt only when a lane's reference keyframe changed."""
+        ref_ks = tuple(max(self.systems[b].tracker.last_kf_id, 0)
+                       for b in g.lanes)
+        if g.ref_kf_batch is None or g.ref_kf_batch[0] != ref_ks:
+            g.ref_kf_batch = (ref_ks, torch.tensor(
+                ref_ks, dtype=torch.int64, device=g.device))
+        return g.ref_kf_batch
 
-    def _empty_boxes(self, lead: tuple):
+    def _empty_boxes(self, g: _LaneGroup, lead: tuple):
         """The empty box set broadcast to ``lead`` (the lane, or lane and
-        chunk, axes)."""
-        dc = self.systems[0].tracker._scalar_consts()
+        chunk, axes), on the group's device."""
+        dc = self.systems[g.lanes.start].tracker._scalar_consts()
         return (dc["bx_empty"].expand(*lead, *dc["bx_empty"].shape),
                 dc["ba_empty"].expand(*lead, *dc["ba_empty"].shape))
 
-    def _dispatch_args(self):
-        """The batched step's map (with the counter chain's counters), the
-        recurrent state and the reference keyframes."""
-        if self._csrc is None:
-            self._csrc = (self.maps.lm_visible, self.maps.lm_found)
-        maps_in = self.maps._replace(lm_visible=self._csrc[0],
-                                     lm_found=self._csrc[1])
-        st = self._bst
-        ref_ks, ref_dev = self._ref_kf_dev()
+    def _dispatch_args(self, g: _LaneGroup):
+        """The group's batched step's map (with the counter chain's
+        counters), its recurrent state and its reference keyframes."""
+        if g.csrc is None:
+            g.csrc = (g.maps.lm_visible, g.maps.lm_found)
+        maps_in = g.maps._replace(lm_visible=g.csrc[0],
+                                  lm_found=g.csrc[1])
+        st = g.bst
+        ref_ks, ref_dev = self._ref_kf_dev(g)
         return (maps_in, (st["last_ids"], st["R_last"], st["t_last"],
                           st["R_p2"], st["t_p2"], st["has_vel"], ref_dev),
                 ref_ks)
@@ -235,7 +282,7 @@ class MultiSystem:
         cfg = self.cfg
         batched: List[int] = []
         stats: List[Optional[TrackStats]] = [None] * self.n
-        if self._bst is None:
+        if self.groups[0].bst is None:
             self._init_bstate()
 
         early = None
@@ -266,29 +313,36 @@ class MultiSystem:
         if not batched:
             return stats
 
-        # the batch always spans all n lanes (the stacked map's shape never
-        # changes); a lane outside it computes rows that are ignored
-        t0 = self.systems[batched[0]].tracker
-        g, d, depth_scale = t0._stage_inputs(
-            np.stack([np.asarray(x) for x in grays]),
-            np.stack([np.asarray(x) for x in auxes]))
-        bx, ba = self._empty_boxes((self.n,))
-        maps_in, chain, ref_ks = self._dispatch_args()
-        out = fused_track_step_batch(
-            maps_in, t0.cam, t0.bounds, g, d, bx, ba, *chain,
-            depth_scale=depth_scale, **t0._track_kwargs())
-        self.dispatches += 1
-        st = self._bst
-        # rotate the batched recurrent state by reference (no device work)
-        self._bst = {"last_ids": out.obs_lm, "R_last": out.R,
-                     "t_last": out.t, "R_p2": st["R_last"],
-                     "t_p2": st["t_last"], "has_vel": self._ones}
-        # the next dispatch continues the counter chain from this step's
-        # output (lanes outside the batch are refreshed from the map by
-        # _sync_lane_to_batch before their next use)
-        self._csrc = (out.lm_visible, out.lm_found)
+        # every group's batch spans all its lanes (the stacked map's shape
+        # never changes); a lane outside the batch computes rows that are
+        # ignored. Every group's step is queued before any packet is read.
+        outs, ref_ks = [], ()
+        for grp in self.groups:
+            lo, hi = grp.lanes.start, grp.lanes.stop
+            tr = self.systems[lo].tracker
+            g, d, depth_scale = tr._stage_inputs(
+                np.stack([np.asarray(x) for x in grays[lo:hi]]),
+                np.stack([np.asarray(x) for x in auxes[lo:hi]]))
+            bx, ba = self._empty_boxes(grp, (grp.n,))
+            maps_in, chain, ks = self._dispatch_args(grp)
+            out = fused_track_step_batch(
+                maps_in, tr.cam, tr.bounds, g, d, bx, ba, *chain,
+                depth_scale=depth_scale, **tr._track_kwargs())
+            self.dispatches += 1
+            st = grp.bst
+            # rotate the batched recurrent state by reference (no device
+            # work)
+            grp.bst = {"last_ids": out.obs_lm, "R_last": out.R,
+                       "t_last": out.t, "R_p2": st["R_last"],
+                       "t_p2": st["t_last"], "has_vel": grp.ones}
+            # the next dispatch continues the counter chain from this
+            # step's output (lanes outside the batch are refreshed from
+            # the map by _sync_lane_to_batch before their next use)
+            grp.csrc = (out.lm_visible, out.lm_found)
+            outs.append(out)
+            ref_ks += ks
 
-        step = ("frame", (out, [float(t) for t in timestamps], ref_ks,
+        step = ("frame", (outs, [float(t) for t in timestamps], ref_ks,
                           batched))
         if self.pipeline:
             prev, self._pending = self._pending, step
@@ -350,26 +404,31 @@ class MultiSystem:
                     [float(t[j]) for t in timestamps])
                 sts.extend(st for st in row if st is not None)
             return sts
-        if self._bst is None:
+        if self.groups[0].bst is None:
             self._init_bstate()
-        t0 = self.systems[0].tracker
-        g, d, depth_scale = t0._stage_inputs(
-            np.stack([np.stack([np.asarray(x) for x in gl])
-                      for gl in grays]),
-            np.stack([np.stack([np.asarray(x) for x in al])
-                      for al in auxes]))
-        bx, ba = self._empty_boxes((self.n, C))
-        maps_in, chain, ref_ks = self._dispatch_args()
-        outs, packed_dev = fused_track_chunk_batch(
-            maps_in, t0.cam, t0.bounds, g, d, bx, ba, *chain,
-            depth_scale=depth_scale, **t0._track_kwargs())
-        self.dispatches += 1
-        self._bst = {"last_ids": outs[-1].obs_lm, "R_last": outs[-1].R,
-                     "t_last": outs[-1].t, "R_p2": outs[-2].R,
-                     "t_p2": outs[-2].t, "has_vel": self._ones}
-        self._csrc = (outs[-1].lm_visible, outs[-1].lm_found)
+        per, ref_ks = [], ()
+        for grp in self.groups:
+            lo, hi = grp.lanes.start, grp.lanes.stop
+            tr = self.systems[lo].tracker
+            g, d, depth_scale = tr._stage_inputs(
+                np.stack([np.stack([np.asarray(x) for x in gl])
+                          for gl in grays[lo:hi]]),
+                np.stack([np.stack([np.asarray(x) for x in al])
+                          for al in auxes[lo:hi]]))
+            bx, ba = self._empty_boxes(grp, (grp.n, C))
+            maps_in, chain, ks = self._dispatch_args(grp)
+            outs, packed_dev = fused_track_chunk_batch(
+                maps_in, tr.cam, tr.bounds, g, d, bx, ba, *chain,
+                depth_scale=depth_scale, **tr._track_kwargs())
+            self.dispatches += 1
+            grp.bst = {"last_ids": outs[-1].obs_lm, "R_last": outs[-1].R,
+                       "t_last": outs[-1].t, "R_p2": outs[-2].R,
+                       "t_p2": outs[-2].t, "has_vel": grp.ones}
+            grp.csrc = (outs[-1].lm_visible, outs[-1].lm_found)
+            per.append((outs, packed_dev))
+            ref_ks += ks
         ts = [[float(t) for t in tl] for tl in timestamps]
-        step = ("chunk", (outs, packed_dev, ts, ref_ks, C))
+        step = ("chunk", (per, ts, ref_ks, C))
         if self.pipeline:
             prev, self._pending = self._pending, step
             if prev is not None:
@@ -398,23 +457,25 @@ class MultiSystem:
         return packed_dev.cpu().numpy()
 
     def _finalize_chunk(self, step):
-        """A chunk step: ONE [B, C, 28] readback, then each lane's host
-        state machine frame by frame (a lane that goes LOST within the
-        chunk skips its remaining frames, which chained on the device from
-        a lost pose). Returns [C][B] stats rows."""
-        outs, packed_dev, ts, ref_ks, C = step
-        self.maps = self.maps._replace(lm_visible=outs[-1].lm_visible,
-                                       lm_found=outs[-1].lm_found)
-        packed = self._read_packet(packed_dev)          # [B, C, 28]
+        """A chunk step: ONE [B_g, C, 28] readback per group, then each
+        lane's host state machine frame by frame (a lane that goes LOST
+        within the chunk skips its remaining frames, which chained on the
+        device from a lost pose). Returns [C][B] stats rows."""
+        per, ts, ref_ks, C = step
+        for grp, (outs, _) in zip(self.groups, per):
+            grp.maps = grp.maps._replace(lm_visible=outs[-1].lm_visible,
+                                         lm_found=outs[-1].lm_found)
+        packed = [self._read_packet(p) for _, p in per]   # [B_g, C, 28]
         rows = []
         for j in range(C):
             row: List[Optional[TrackStats]] = [None] * self.n
             for b in range(self.n):
                 if self.systems[b].tracker.state != "OK":
                     continue
-                row[b] = self._lane_post(b, outs[j], packed[b, j],
-                                         ts[b][j], ref_ks[b],
-                                         allow_obs_patch=False)
+                g, lane = self._lane(b)
+                row[b] = self._lane_post(b, per[g.index][0][j],
+                                         packed[g.index][lane, j], ts[b][j],
+                                         ref_ks[b], allow_obs_patch=False)
             rows.append(row)
         return rows
 
@@ -437,36 +498,43 @@ class MultiSystem:
         return fin
 
     def _finalize_step(self, step) -> List[Optional[TrackStats]]:
-        out, ts, ref_ks, batched = step
-        # the batched landmark counters, but only for the lanes that were
-        # in the batch: the others' rows were computed from stale state and
-        # would drive their found/visible ratios towards culling
-        if len(batched) == self.n:
-            self.maps = self.maps._replace(lm_visible=out.lm_visible,
-                                           lm_found=out.lm_found)
-        else:
-            bset = tuple(sorted(batched))
-            if self._bmask_cache is None or self._bmask_cache[0] != bset:
-                m = np.zeros(self.n, bool)
-                m[list(batched)] = True
-                self._bmask_cache = (bset, torch.from_numpy(m).to(
-                    self.device))
-            self.maps = _merge_counters(self.maps, out.lm_visible,
-                                        out.lm_found, self._bmask_cache[1])
-        packed = self._read_packet(out.packed)        # [B, 28]
+        outs, ts, ref_ks, batched = step
+        for grp, out in zip(self.groups, outs):
+            # the batched landmark counters, but only for the lanes that
+            # were in the batch: the others' rows were computed from stale
+            # state and would drive their found/visible ratios towards
+            # culling
+            mine = tuple(b - grp.lanes.start for b in sorted(batched)
+                         if b in grp.lanes)
+            if len(mine) == grp.n:
+                grp.maps = grp.maps._replace(lm_visible=out.lm_visible,
+                                             lm_found=out.lm_found)
+            else:
+                if grp.bmask_cache is None or grp.bmask_cache[0] != mine:
+                    m = np.zeros(grp.n, bool)
+                    m[list(mine)] = True
+                    grp.bmask_cache = (mine, torch.from_numpy(m).to(
+                        grp.device))
+                grp.maps = _merge_counters(grp.maps, out.lm_visible,
+                                           out.lm_found, grp.bmask_cache[1])
+        packed = [self._read_packet(out.packed) for out in outs]  # [B_g, 28]
         stats: List[Optional[TrackStats]] = [None] * self.n
         for b in batched:
-            stats[b] = self._lane_post(b, out, packed[b], ts[b], ref_ks[b])
+            g, lane = self._lane(b)
+            stats[b] = self._lane_post(b, outs[g.index],
+                                       packed[g.index][lane], ts[b],
+                                       ref_ks[b])
         return stats
 
     def _lane_post(self, b: int, out, pk, ts: float, ref_k: int,
                    allow_obs_patch: bool = True) -> TrackStats:
-        """Lane b's host state machine from its packet row; device work
-        (the lane's frame, its map) happens only on keyframe and LOST
-        events."""
+        """Lane b's host state machine from its packet row (``out`` is its
+        group's step); device work (the lane's frame, its map) happens
+        only on keyframe and LOST events."""
         cfg = self.cfg
         sys_b = self.systems[b]
         tr = sys_b.tracker
+        grp, j = self._lane(b)
         n_mm, n_map = int(pk[0]), int(pk[1])
         np_R = pk[4:13].reshape(3, 3)
         np_t = pk[13:16]
@@ -476,12 +544,12 @@ class MultiSystem:
                 or n_map < cfg.tracking.min_inliers_localmap)
 
         def make_frame():
-            frame = Frame(data=_read_lane(out.fd, b),
+            frame = Frame(data=_read_lane(out.fd, j),
                           frame_id=sys_b.frame_id, timestamp=ts,
                           ref_kf=ref_k, np_R=np_R, np_t=np_t, np_Rk=np_Rk,
                           np_tk=np_tk)
-            frame.R, frame.t = out.R[b].clone(), out.t[b].clone()
-            frame.obs_lm = out.obs_lm[b].clone()
+            frame.R, frame.t = out.R[j].clone(), out.t[j].clone()
+            frame.obs_lm = out.obs_lm[j].clone()
             return frame
 
         # velocity (host mirror, for the per-frame path on a fallback)
@@ -549,9 +617,9 @@ class MultiSystem:
                 # mode (pipelined, the batch state already rotated to a
                 # newer frame: the single System's pipeline skew)
                 if not self.pipeline and allow_obs_patch:
-                    self._bst["last_ids"] = self._bst["last_ids"].index_copy(
-                        0, self._lane_idx[b], frame.obs_lm[None])
-                self._ref_kf_batch = None
+                    grp.bst["last_ids"] = grp.bst["last_ids"].index_copy(
+                        0, grp.lane_idx[j], frame.obs_lm[None])
+                grp.ref_kf_batch = None
             if tr.map is not pre_map:
                 self._map_dirty[b] = True
                 self._sync_lane_to_batch(b)

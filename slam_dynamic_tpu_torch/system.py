@@ -4,8 +4,9 @@ Port of ``slam_dynamic_tpu/system.py:29`` (``System.__init__``, the
 online detector :41-53 and the dense map :67-71), ``_ensure_voc`` :75,
 ``_on_keyframe`` :99, ``_on_reloc`` :125, ``_relocalize`` :152, the box
 state (``_maybe_detect`` :164, ``_advance_boxes`` :188,
-``_active_boxes`` :197), ``track_rgbd`` :206 (the fused path and the
-``mask=`` path, :250-262), ``track_stereo`` :250, ``track_chunk`` :271
+``_active_boxes`` :197), ``track_rgbd`` :206 (the fused path, the
+``mask=`` path, :250-262, and ``prefetch_next`` :218), ``track_stereo``
+:250 (with ``prefetch_next`` :257), ``track_chunk`` :271
 (depth maps, right images, or None for mono), ``track_mono`` :315,
 ``_track_common`` :325, ``_dyn_args`` :335, ``_dyn_after`` :377, the
 ``trajectory`` property and the trajectory writers
@@ -75,10 +76,6 @@ class System:
 
     def __init__(self, cfg: SystemConfig, device=None):
         path = cfg.vocabulary.path
-        if path and not str(path).endswith(".npz"):
-            raise NotImplementedError(
-                f"vocabulary {path!r}: only .npz vocabularies load in the "
-                "port")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cam = intrinsics_from_config(cfg, self.device)
@@ -114,6 +111,9 @@ class System:
         self.last_loop = None
         self.n_reloc_corrections = 0
         if path:
+            # an .npz, as the JAX System reads it (system.py:59-61): any
+            # other file raises what np.load raises on it (a DBoW2 text
+            # vocabulary goes through vocabulary.load_orbvoc_text first)
             self.voc = voc_mod.load(path, self.device)
             self.voc_source = path
         self._wire(self.tracker)
@@ -315,7 +315,8 @@ class System:
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray,
                    timestamp: float,
                    detections: Optional[np.ndarray] = None,
-                   mask: Optional[np.ndarray] = None) -> TrackStats:
+                   mask: Optional[np.ndarray] = None,
+                   prefetch_next: Optional[tuple] = None) -> TrackStats:
         """RGB-D entry (ref System::TrackRGBD): uint8 gray and uint16 (or
         float metres) depth in, one fused device step per tracked frame.
         ``detections`` [D, 4] are this frame's boxes (x0, y0, x1, y1);
@@ -325,8 +326,12 @@ class System:
         it; such a frame is built and tracked on the host
         (``_track_common``), its boxes classified before it is tracked.
         Without ``detections`` the online detector, if configured, finds
-        them. A keyframe enters the dense map once its stats are final."""
+        them. A keyframe enters the dense map once its stats are final.
+        ``prefetch_next``: the NEXT frame's (gray, depth), staged while
+        this one runs (``Tracker.prefetch``; pass the same arrays to the
+        next call)."""
         detections = self._maybe_detect(gray, detections)
+        self._prefetch(prefetch_next)
         if self.dense is not None:
             self._cache_frame(self.frame_id, gray, depth, mask)
         if mask is not None:
@@ -342,13 +347,15 @@ class System:
 
     def track_stereo(self, left: np.ndarray, right: np.ndarray,
                      timestamp: float,
-                     detections: Optional[np.ndarray] = None) -> TrackStats:
+                     detections: Optional[np.ndarray] = None,
+                     prefetch_next: Optional[tuple] = None) -> TrackStats:
         """Stereo entry (ref System::TrackStereo): rectified uint8 left
         and right images in, one fused device step per tracked frame (two
-        extractions and the row-band matcher); ``detections`` as in
-        ``track_rgbd`` (the online detector's boxes reshaped for
-        stereo)."""
+        extractions and the row-band matcher); ``detections`` and
+        ``prefetch_next`` (the next (left, right)) as in ``track_rgbd``
+        (the online detector's boxes reshaped for stereo)."""
         detections = self._maybe_detect(left, detections, stereo=True)
+        self._prefetch(prefetch_next)
         return self._track_fused(left, right, timestamp, detections)
 
     def track_mono(self, gray: np.ndarray, timestamp: float) -> TrackStats:
@@ -363,6 +370,12 @@ class System:
             return st
         return self._track_common(build_frame(self.cfg, self.cam, gray,
                                               self.frame_id, timestamp))
+
+    def _prefetch(self, prefetch_next):
+        """Stage the next frame while tracking is OK (``system.py``
+        :219, :258 of the reference)."""
+        if prefetch_next is not None and self.tracker.state == "OK":
+            self.tracker.prefetch(*prefetch_next)
 
     def _track_fused(self, gray, aux, timestamp: float, detections):
         """One frame through the fused step (aux: the depth map or the
@@ -562,11 +575,12 @@ class System:
 
     def shutdown(self):
         """Drain the frames in flight and run a global BA in flight to its
-        merge (the reference's System::Shutdown joins its threads); the
-        System stays queryable."""
+        merge (the reference's System::Shutdown joins its threads), and
+        end the prefetch worker; the System stays queryable."""
         self.tracker.flush()
         while self._gba is not None:
             self._gba_step()
+        self.tracker.close()
 
     def activate_localization_mode(self):
         """Track only, against the map as it stands (the reference's

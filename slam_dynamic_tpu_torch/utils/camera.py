@@ -3,7 +3,8 @@
 
 Port of ``slam_dynamic_tpu/utils/camera.py`` (``Intrinsics`` :16,
 ``project`` :57, ``project_stereo`` :68, ``backproject`` :78,
-``undistort_points`` :95, ``undistorted_bounds`` :114).
+``undistort_points`` :95, ``undistorted_bounds`` :114, ``in_frustum``
+:125).
 """
 from __future__ import annotations
 
@@ -118,3 +119,17 @@ def undistorted_bounds(cam: Intrinsics):
             torch.maximum(und[1, 0], und[3, 0]),
             torch.minimum(und[0, 1], und[1, 1]),
             torch.maximum(und[2, 1], und[3, 1]))
+
+
+def in_frustum(cam: Intrinsics, R_cw, t_cw, xw, bounds, min_z=0.0):
+    """Frustum visibility of world points [..., 3] from the pose (R_cw,
+    t_cw): (visible mask, uv, depth). The view-angle and scale checks are
+    the caller's (they need each landmark's normal), as the reference's
+    Frame::isInFrustum splits them."""
+    xc = torch.einsum("ij,...j->...i", R_cw, xw) + t_cw
+    z = xc[..., 2]
+    uv = project(cam, xc)
+    minx, maxx, miny, maxy = bounds
+    ok = ((z > min_z) & (uv[..., 0] >= minx) & (uv[..., 0] < maxx)
+          & (uv[..., 1] >= miny) & (uv[..., 1] < maxy))
+    return ok, uv, z

@@ -100,16 +100,14 @@ def test_default_config_constructs_and_unported_parts_raise(world):
     for sensor in ("stereo", "mono"):
         s = System(TC.SystemConfig(sensor=sensor), device="cpu")
         assert s.tracker.stereo_obs == (sensor == "stereo")
-    # the post-loop global BA (item 20a) and strided depth (item 20b) are
-    # ported: their Systems build; the adaptive pipeline depth (item 22)
-    # still raises
+    # the post-loop global BA (item 20a), strided depth (item 20b) and the
+    # adaptive pipeline depth (item 22) are ported: their Systems build
     assert System(TC.SystemConfig(loop=TC.LoopConfig(run_global_ba=True)),
                   device="cpu")._gba is None
     assert System(TC.SystemConfig(tracking=TC.TrackingConfig(
         depth_stride=2)), device="cpu").tracker.state == "NOT_INITIALIZED"
-    with pytest.raises(NotImplementedError, match="item 22"):
-        System(TC.SystemConfig(tracking=TC.TrackingConfig(
-            adaptive_pipeline=True)), device="cpu")
+    assert System(TC.SystemConfig(tracking=TC.TrackingConfig(
+        adaptive_pipeline=True)), device="cpu").tracker._adaptive_depth()
     # the mask= path is ported: a frame builds on the host and initializes
     scfg, seq, gray8, depth16 = world
     tcfg = dynamic_configs(scfg)[1]

@@ -118,3 +118,22 @@ def test_differing_descriptor_is_float_rounding_of_the_angle():
         jpyr.gaussian_blur(lj), jnp.asarray(xy_l),
         jnp.asarray([aj], jnp.float32))).view(np.int32)[0]
     np.testing.assert_array_equal(ref, dj[n])
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_extract_np_matches_jax(dtype):
+    """``extract_np``: a numpy image of either dtype in, the same keypoints
+    as JAX's ``extract_np`` under this file's tolerance, and exactly the
+    port's ``extract`` of the float image."""
+    from slam_dynamic_tpu.frontend.extractor import extract_np as jnp_ex
+    from slam_dynamic_tpu_torch.frontend.extractor import extract_np
+    img = _GRAY[1].astype(dtype)
+    kj = jnp_ex(img, JORB(n_features=600))
+    kt = extract_np(img, TORB(n_features=600), device="cpu")
+    same = ((np.asarray(kj.xy) == kt.xy.numpy()).all(1)
+            & (np.asarray(kj.valid) == kt.valid.numpy()))
+    assert same.mean() >= 0.99, same.mean()
+    ref = extract(torch.from_numpy(_GRAY[1].astype(np.float32)),
+                  TORB(n_features=600))
+    for a, b in zip(kt, ref):
+        assert torch.equal(a, b)

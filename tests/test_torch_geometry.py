@@ -119,3 +119,32 @@ def test_camera_projection_family(kw):
                     tcam.undistorted_bounds(ct)):
         _close(a, b, atol=1e-3)
     _close(cj.K, ct.K)
+
+
+@pytest.mark.parametrize("kw", CAMS)
+def test_in_frustum_matches_jax(kw):
+    """``in_frustum`` on points in front, behind and outside the image:
+    the same mask, uv and depth."""
+    rng = np.random.default_rng(7)
+    cj = jcam.Intrinsics.create(width=640, height=480, **kw)
+    ct = tcam.Intrinsics.create(width=640, height=480, device="cpu", **kw)
+    xw = np.stack([rng.uniform(-6, 6, 300), rng.uniform(-4, 4, 300),
+                   rng.uniform(-3, 9, 300)], 1).astype(np.float32)
+    xi = np.array([0.05, -0.1, 0.2, 0.1, -0.05, 0.02], np.float32)
+    Rj, tj = jse3.se3_exp(jnp.asarray(xi))
+    Rt, tt = tse3.se3_exp(torch.from_numpy(xi))
+    okj, uvj, zj = jcam.in_frustum(cj, Rj, tj, xw,
+                                   jcam.undistorted_bounds(cj), min_z=0.1)
+    okt, uvt, zt = tcam.in_frustum(ct, Rt, tt, torch.from_numpy(xw),
+                                   tcam.undistorted_bounds(ct), min_z=0.1)
+    _close(zj, zt)
+    _close(uvj, uvt, atol=1e-3)
+    # a point within the rounding of a bound may fall either side
+    edge = np.zeros(300, bool)
+    for a, b in ((uvj[:, 0], 0), (uvj[:, 1], 1)):
+        lo, hi = (jcam.undistorted_bounds(cj)[2 * b],
+                  jcam.undistorted_bounds(cj)[2 * b + 1])
+        edge |= (np.abs(np.asarray(a) - float(lo)) < 1e-2) \
+            | (np.abs(np.asarray(a) - float(hi)) < 1e-2)
+    np.testing.assert_array_equal(okt.numpy()[~edge], np.asarray(okj)[~edge])
+    assert 0 < okt.sum() < 300

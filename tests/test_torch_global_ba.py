@@ -135,9 +135,10 @@ def test_sharded_ba_reduces_twice_per_step(problems, monkeypatch):
     calls = []
     reduce = tsba.reduce
 
-    def counted(parts):
+    def counted(parts, group=None):
+        assert group is None        # one process: no all-reduce
         calls.append(len(parts))
-        return reduce(parts)
+        return reduce(parts, group)
     monkeypatch.setattr(tsba, "reduce", counted)
     tsba.make_sharded_ba(4, TCAM, p["K"], p["Lp"], p["Oc"], True,
                          3)(p["port"])
@@ -160,6 +161,26 @@ def test_global_ba_from_mapstate_matches_jax(world):
     np.testing.assert_array_equal(t.kf_t.numpy()[3:], tm.kf_t.numpy()[3:])
     np.testing.assert_array_equal(t.lm_pos.numpy()[L:],
                                   tm.lm_pos.numpy()[L:])
+
+
+def test_global_ba_over_a_mesh_equals_its_shard_count(world):
+    """``mesh=`` (where JAX's ``_build_problem`` makes its mesh): a
+    4-entry "lm" mesh of this process lays the shards out as
+    ``n_devices=4`` does, to the same bits, the amortized form too."""
+    from slam_dynamic_tpu_torch.parallel.mesh import make_mesh
+    _, tm, _, _ = world
+    mesh = make_mesh(4, "lm", devices=["cpu"] * 4)
+    a = tg.global_bundle_adjust(tm, TCAM, stereo=True, iters=3,
+                                n_devices=4)
+    b = tg.global_bundle_adjust(tm, TCAM, stereo=True, iters=3, mesh=mesh)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    ga = tg.AmortizedGBA(tm, TCAM, stereo=True, total_iters=3,
+                         slice_iters=3, mesh=mesh)
+    ga.step()
+    assert ga.done
+    for x, y in zip(ga.merge(tm), b):
+        assert torch.equal(x, y)
 
 
 # --- AmortizedGBA ----------------------------------------------------------

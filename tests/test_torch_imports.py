@@ -1,6 +1,7 @@
-"""The port, chip_smoke.py and the driver it loads (tests/port_drive.py)
-import nothing of JAX or of the JAX package (the card's machine has no
-JAX, and slam_dynamic_tpu/__init__.py imports it)."""
+"""The port, chip_smoke.py and the drivers it runs (tests/port_drive.py,
+tests/port_shards.py) import nothing of JAX or of the JAX package (the
+card's machine has no JAX, and slam_dynamic_tpu/__init__.py imports
+it)."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted(str(p.relative_to(ROOT)) for p in
                (ROOT / "slam_dynamic_tpu_torch").rglob("*.py")) + \
-    ["chip_smoke.py", "tests/port_drive.py"]
+    ["chip_smoke.py", "tests/port_drive.py", "tests/port_shards.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "slam_dynamic_tpu")
 
 
@@ -65,6 +66,9 @@ def test_importing_the_port_loads_no_jax():
             "slam_dynamic_tpu_torch.viz.ar, "
             "slam_dynamic_tpu_torch.parallel.sharded_ba, "
             "slam_dynamic_tpu_torch.parallel.multi_system, "
+            "slam_dynamic_tpu_torch.parallel.mesh, "
+            "slam_dynamic_tpu_torch.parallel.distributed, "
+            "slam_dynamic_tpu_torch.parallel.sharded_pose_graph, "
             "slam_dynamic_tpu_torch.backend.global_ba, "
             "slam_dynamic_tpu_torch.io.rosbag, "
             "slam_dynamic_tpu_torch.io.live, "

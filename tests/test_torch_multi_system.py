@@ -29,7 +29,11 @@ Tolerances, each with its reason:
   ATE within max(1 mm, 20%) of JAX's and the same keyframe count per
   lane;
 - the pipelined, stereo and chunked cold-start scenarios under the JAX
-  tests' own bounds.
+  tests' own bounds;
+- ``mesh=`` (2 lanes over a 2-entry "dp" mesh, one lane per group): the
+  unsharded MultiSystem's decisions and camera centres within 1 mm, per
+  frame and chunked; a group equals a MultiSystem of its lanes bit for
+  bit.
 """
 import argparse
 import contextlib
@@ -60,6 +64,7 @@ from slam_dynamic_tpu_torch.io.synthetic import SynthConfig, generate
 from slam_dynamic_tpu_torch.kernel_bench import k1_problem
 from slam_dynamic_tpu_torch.ops import gated_match as gm
 from slam_dynamic_tpu_torch.ops import hamming as hm
+from slam_dynamic_tpu_torch.parallel.mesh import make_mesh
 from slam_dynamic_tpu_torch.parallel.multi_system import MultiSystem
 from slam_dynamic_tpu_torch.system import System
 from slam_dynamic_tpu_torch.utils import scatter
@@ -513,10 +518,57 @@ def test_multi_system_chunked_cold_start(seqs):
         assert ate_rmse(est, q.t_wc[:len(est)], align=False) < 0.06
 
 
-def test_mesh_raises_for_item_20c():
-    with pytest.raises(NotImplementedError, match="item 20c"):
-        MultiSystem(_cfg(TC, SynthConfig(**BASE)), 2, device="cpu",
-                    mesh=object())
+def _decisions(sts):
+    return [(s.state, s.n_inliers_mm, s.n_inliers_map, s.is_keyframe)
+            for s in sts]
+
+
+def test_mesh_raises_for_item_20c(seqs, independent):
+    """Item 20c is ported, and ``mesh=`` no longer raises: 2 lanes over a
+    2-entry "dp" mesh build one lane group per entry, each with its own
+    stacked map, and track per frame with the unsharded MultiSystem's
+    states, inlier counts and keyframe decisions, camera centres within
+    1 mm (a group of one lane reduces in another order than a batch of
+    two, as a solo System does). A group is a MultiSystem of its own
+    lanes: over its first 8 frames lane 0 equals a one-lane MultiSystem
+    bit for bit, decisions and packet poses."""
+    cfg = _cfg(TC, SynthConfig(**BASE))
+    ms = MultiSystem(cfg, 2, mesh=make_mesh(2, "dp",
+                                            devices=["cpu", "cpu"]))
+    assert [g.lanes for g in ms.groups] == [range(0, 1), range(1, 2)]
+    assert all(g.maps.kf_R.shape[0] == 1 for g in ms.groups)
+    rows = [ms.track_rgbd_batch(*_frame(seqs, i)) for i in range(T)]
+    one = MultiSystem(cfg, 1, device="cpu")
+    rows1 = [one.track_rgbd_batch(*[x[:1] for x in _frame(seqs, i)])[0]
+             for i in range(8)]
+    for b in range(2):
+        assert _decisions([r[b] for r in rows]) == \
+            _decisions([r[b] for r in independent["rows"]])
+        np.testing.assert_allclose(_est(ms.systems[b].trajectory),
+                                   independent["est"][b], atol=1e-3)
+    lane0 = [r[0] for r in rows[:8]]
+    assert _decisions(lane0) == _decisions(rows1)
+    for a, b in zip(lane0[1:], rows1[1:]):
+        np.testing.assert_array_equal(a.np_R, b.np_R)
+        np.testing.assert_array_equal(a.np_t, b.np_t)
+    # each call queues every group's step, then reads every packet
+    assert ms.dispatches == ms.packet_reads == 2 * (T - 1)
+
+
+def test_mesh_multi_system_chunked(seqs, port_chunked):
+    """The chunked scenario (``test_multi_system_chunked``) on the 2-entry
+    mesh, one chunk in flight: the unsharded run's stats, keyframe
+    counts and frames fed, camera centres within 1 mm."""
+    ms = MultiSystem(_cfg(TC, SynthConfig(**BASE)), 2, pipeline=True,
+                     mesh=make_mesh(2, "dp", devices=["cpu", "cpu"]))
+    stats, fed = _chunked_scenario(ms, seqs)
+    assert fed == port_chunked["fed"]
+    assert _decisions(stats) == _decisions(port_chunked["stats"])
+    assert [s.tracker.kf_seq for s in ms.systems] == port_chunked["kf"]
+    for b in range(2):
+        np.testing.assert_allclose(_est(ms.systems[b].trajectory),
+                                   _est(port_chunked["traj"][b]), atol=1e-3)
+    assert ms.dispatches == ms.packet_reads
 
 
 def test_lane_maps_carried_from_jax(jax_chunked):
@@ -626,3 +678,43 @@ def test_bench_ate_flag_reports_the_ate():
                              dict(ate_m=0.004, fps=3.0))
     assert line["unit"] == "m" and line["value"] == 0.004
     assert line["vs_baseline"] == 5.0
+
+
+def test_bench_budget_watchdog_prints_the_partial_line(capsys):
+    """``bench --budget``: at the budget the watchdog prints the partial
+    line (the timed frames' fps) and exits with 0; a run that ended
+    prints nothing more."""
+    import time
+    args = argparse.Namespace(
+        budget=5.0, multi=2, chunk=1, cpu=True, ate=False, stereo=False,
+        dynamic=False)
+    progress = bench.Progress()
+    progress.start(time.perf_counter() - 2.0)
+    progress.add(12)
+    codes = []
+    bench._watchdog(args, progress, exit=codes.append)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert codes == [0] and line["partial_frames"] == 12
+    assert 0 < line["value"] <= 6.0 and "budget of 5.0 s hit" in \
+        line["metric"] and "2 lanes" in line["metric"]
+    assert line["per_lane_fps"] == pytest.approx(line["value"] / 2,
+                                                 abs=0.01)
+    progress.done = True
+    bench._watchdog(args, progress, exit=codes.append)
+    assert codes == [0] and not capsys.readouterr().out
+
+
+def test_bench_budget_cuts_a_run():
+    """A budget shorter than the run's set-up: the error line, exit 0."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "slam_dynamic_tpu_torch.bench", "--cpu",
+         "--budget", "1", "--frames", "200"], cwd=root, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["value"] == 0.0 and "fewer than 5 timed frames" in \
+        line["error"]

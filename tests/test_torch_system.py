@@ -243,37 +243,143 @@ def test_public_constructors_default_to_cuda(monkeypatch, make):
 
 @pytest.mark.parametrize("change", ["stereo", "detector", "global_ba",
                                     "text_vocabulary", "adaptive_pipeline"])
-def test_unported_options_raise(change):
-    scfg, *_ = small_world(n_frames=1)
-    cfg = configs(scfg)[1]
+def test_unported_options_raise(change, tmp_path):
+    """The options that raised while item 22 was open now build, and a
+    System with each tracks its first frame; a DBoW2 text vocabulary
+    path raises in both packages, the same error (each System reads its
+    path with ``np.load``)."""
+    scfg, seq, gray8, depth16 = small_world(n_frames=1)
+    jcfg, cfg = configs(scfg)
     if change == "stereo":
-        # the stereo sensor is ported (test_torch_stereo.py); an unported
-        # option of a stereo System still raises
         cfg = cfg.replace(sensor="stereo", tracking=dataclasses.replace(
             cfg.tracking, adaptive_pipeline=True))
     elif change == "detector":
-        # precomputed boxes and the online detector are ported
-        # (test_torch_online_system.py); an unported option of an
-        # online-detector System still raises
         cfg = cfg.replace(
             detector=dataclasses.replace(cfg.detector, mode="online"),
             tracking=dataclasses.replace(cfg.tracking,
                                          adaptive_pipeline=True))
     elif change == "global_ba":
-        # the global BA is ported (test_torch_global_ba.py); an unported
-        # option of a System running it still raises
         cfg = cfg.replace(loop=dataclasses.replace(cfg.loop,
                                                    run_global_ba=True),
                           tracking=dataclasses.replace(cfg.tracking,
                                                        adaptive_pipeline=True))
     elif change == "text_vocabulary":
-        cfg = cfg.replace(vocabulary=dataclasses.replace(
-            cfg.vocabulary, path="ORBvoc.txt"))
+        from slam_dynamic_tpu_torch.models import vocabulary as tvoc
+        path = str(tmp_path / "ORBvoc.txt")
+        tvoc.save_orbvoc_text(path, tvoc.train(
+            np.random.default_rng(0).integers(0, 2**32, (64, 8),
+                                              dtype=np.uint32),
+            k=2, levels=2, device="cpu"))
+        errors = []
+        for C, make in ((jcfg, JSystem),
+                        (cfg, lambda c: System(c, device="cpu"))):
+            with pytest.raises(Exception) as err:
+                make(C.replace(vocabulary=dataclasses.replace(
+                    C.vocabulary, path=path)))
+            errors.append(err.type)
+        assert errors[0] is errors[1], errors
+        return
     else:
         cfg = cfg.replace(tracking=dataclasses.replace(
             cfg.tracking, pipeline_depth=1, adaptive_pipeline=True))
-    with pytest.raises(NotImplementedError,
-                       match="item 22" if change in ("global_ba", "stereo")
-                       else None):
-        System(cfg, device="cpu")
+    system = System(cfg, device="cpu")
+    assert system.tracker._adaptive_depth()
+    if change == "stereo":
+        st = system.track_stereo(gray8[0], gray8[0], 0.0)
+    else:
+        st = system.track_rgbd(gray8[0], depth16[0], 0.0)
+    # (a stereo pair of one image has no depth: it does not initialize)
+    assert st.state == ("NOT_INITIALIZED" if change == "stereo" else "OK")
 
+
+def _ready_schedule(not_ready, calls):
+    """A ``Tracker._packet_ready`` that answers False on the calls numbered
+    in ``not_ready`` (0-based) and True otherwise, recording its answers
+    in ``calls``."""
+    def ready(out):
+        calls.append(len(calls) not in not_ready)
+        return calls[-1]
+    return staticmethod(ready)
+
+
+@pytest.fixture(scope="module")
+def adaptive():
+    """Both packages with one frame in flight and the adaptive pipeline
+    depth, the packets forced not ready on calls 2, 3 and 6 (frames run
+    one and two deeper there), the frames left in flight drained."""
+    from slam_dynamic_tpu.frontend.tracking import Tracker as JTracker
+    from slam_dynamic_tpu_torch.frontend.tracking import Tracker
+    (seq, gray8, depth16), js, ts = _systems(pipeline_depth=1,
+                                             adaptive_pipeline=True)
+    out = dict(seq=seq)
+    for name, system, cls in (("jax", js, JTracker), ("port", ts, Tracker)):
+        calls = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(cls, "_packet_ready", _ready_schedule({2, 3, 6},
+                                                             calls))
+            stats = [system.track_rgbd(gray8[i], depth16[i],
+                                       float(seq.timestamps[i]))
+                     for i in range(N_FRAMES)]
+            stats += drain(system.tracker)
+        est = np.stack([-R.T @ t for _, R, t in system.trajectory])
+        out[name] = dict(stats=stats, calls=calls, est=est)
+    return out
+
+
+def test_adaptive_pipeline_depth_matches_jax(adaptive):
+    """The same readiness answers give the same finalize order, states
+    and keyframe decisions in both packages, and poses within 1e-4. (A
+    call that finalizes several frames returns the last one's stats, in
+    both.)"""
+    j, t = adaptive["jax"], adaptive["port"]
+    assert t["calls"] == j["calls"]
+    assert t["calls"].count(False) == 3          # frames run deeper
+    assert [(s.frame_id, s.state, s.is_keyframe) for s in t["stats"]] == \
+        [(s.frame_id, s.state, s.is_keyframe) for s in j["stats"]]
+    assert len(t["est"]) == N_FRAMES
+    np.testing.assert_allclose(t["est"], j["est"], atol=1e-4)
+
+
+def test_adaptive_pipeline_on_the_cpu_finalizes_like_depth_one():
+    """On the CPU a packet is always ready (JAX's answer when its runtime
+    cannot tell), so the adaptive depth never runs deeper there: the
+    plain one-frame pipeline. ``start_copy`` queues no copy on the
+    CPU."""
+    from slam_dynamic_tpu_torch.frontend.tracking import (Tracker,
+                                                          _ChunkPacket,
+                                                          _PacketRow)
+    owner = type("Owner", (), {"packet_reads": 0})()
+    shared = _ChunkPacket(torch.arange(56.0).reshape(2, 28), owner)
+    row = _PacketRow(shared, 1)
+    row.start_copy()
+    assert Tracker._packet_ready(type("Out", (), {"packed": row})())
+    np.testing.assert_array_equal(row.numpy(), np.arange(28.0, 56.0))
+    assert owner.packet_reads == 1 and shared.ready()
+
+
+def test_prefetch_matches_direct_path(runs):
+    """``tests/test_e2e_slam.py:195``: ``track_rgbd(prefetch_next=)``
+    (the next frame staged on the worker thread) gives the direct path's
+    trajectory, here to the bit."""
+    scfg, seq, gray8, depth16 = small_world(n_frames=N_FRAMES)
+    ts = System(configs(scfg)[1], device="cpu")
+    # the same array objects in both calls: frames match by identity
+    frames = [(gray8[i], depth16[i]) for i in range(N_FRAMES)] + [None]
+    taken = []
+    take = ts.tracker._take_prefetched
+
+    def spy(gray, aux):
+        staged = take(gray, aux)
+        taken.append(staged is not None)
+        return staged
+    ts.tracker._take_prefetched = spy
+    stats = [ts.track_rgbd(*frames[i], float(seq.timestamps[i]),
+                           prefetch_next=frames[i + 1])
+             for i in range(N_FRAMES)]
+    assert all(s.state == "OK" for s in stats)
+    # frame 0 initializes on the host; frame 1 was not staged (tracking
+    # was not OK when frame 0 came); every later one was
+    assert taken == [False] + [True] * (N_FRAMES - 2)
+    assert not ts.tracker._prefetch
+    np.testing.assert_array_equal(
+        np.stack([-R.T @ t for _, R, t in ts.trajectory]), runs["port"][1])
