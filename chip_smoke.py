@@ -18,10 +18,17 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      bit-equal, beside one PyTorch call computing the same matrix
      (bipolar int8 torch._int_mm, timed here only, never called by the
      port);
+  2b. kernel K3 (the tracker's pose LM) against its plain version at the
+     tracker's 2048 observations, D = 3 and 2, the motion model's 2 x 6
+     and the local map's 4 x 10, 30% outliers: 16 single calls each
+     within kernel_bench.hold_k3's tolerances, and one torch.func.vmap
+     call of the 16 lanes one launch, bit-equal with them; K3's and the
+     plain version's device times (kernel_bench.k3_report);
   3. System.track_rgbd on the synthetic 640x480 RGB-D world, 1000 ORB
      features, bench capacities, loop detection on: fps, p50 ms per
-     frame, keyframes, LOST frames, ATE, and the launch counts of K1 and
-     K2 over that run, which keeps a copy of the inputs of its K1 calls
+     frame, keyframes, LOST frames, ATE, and the launch counts of K1, K2
+     and K3 (at least 3 a tracked frame) over that run, which keeps a
+     copy of the inputs of its K1 calls
      (device-side copies of a few hundred kB a frame);
   4. K1 on those inputs: bit-equal with its plain version on every call,
      their shares of ok keypoints and landmarks, and the device time and
@@ -152,8 +159,8 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
      with one frame in flight, run in the same call; the kernel launches,
      sync calls and busy share of a steady batched step under
      torch.profiler beside one lane's frame (the solo System's), and 3
-     batched K1 launches in every timed step, as one lane's fused step
-     makes; the batched K1 calls of the first 3 steps held bit-equal with
+     batched K1 and 3 batched K3 launches in every timed step, as one
+     lane's fused step makes; the batched K1 calls of the first 3 steps held bit-equal with
      4 single launches and the plain version, timed beside them;
      (b) ``--multi 2 --chunk 6`` on 30 frames from a cold start (per-frame
      batches until every lane is OK, then chunks); (c)
@@ -185,12 +192,15 @@ CUDA toolkit's nvcc; takes no arguments. Phases, one line each:
 Kernel, plain and library times are device times (CUDA-graph replay
 between CUDA events, slam_dynamic_tpu_torch/kernel_bench.py), each beside
 the least time the card could take for the same work; K2's row takes
-its times from phase 6's inputs. It then prints the wall time of each
-phase, the kernel table as one JSON line (``launches`` is phase 5's
-count, the main path's; ``launches_per_phase`` adds phases 3, 6, 7, 8,
-8c, 8b, 9, 10, 10b, 11, 12, the four paths of 13, the four of 14 and the
-three of 15; the batched launches of K1 and K2 have rows of their own,
-``launches`` there phase 14a's and 14c's) and, last, the result line. Any
+its times from phase 6's inputs, K3's from phase 2b's, per call of a
+tracked frame's three (two 2 x 6, one 4 x 10). Each tracking phase
+sets the launch counts of K1, K2 and K3 to 0 before it and reads them
+after. It then prints the wall time of each phase, the kernel table as
+one JSON line (``launches`` is phase 5's count, the main path's;
+``launches_per_phase`` adds phases 3, 6, 7, 8, 8c, 8b, 9, 10, 10b, 11,
+12, the four paths of 13, the four of 14 and the three of 15; the batched
+launches of K1, K2 and K3 have rows of their own, ``launches`` there
+phase 14a's, 14c's and 14a's) and, last, the result line. Any
 failed check raises, and a hang ends in a traceback and a nonzero exit
 after 1100 s.
 """
@@ -290,6 +300,7 @@ SHARD_POSES = 256
 SHARD_KF, SHARD_LM, SHARD_OBS = 16, 1024, 12288
 ADAPTIVE_FRAMES = 30
 PROFILED_STEPS = 1
+K3_LANES = 16           # phase 2b: the fleet's lanes in one K3 launch
 
 
 def log(msg):
@@ -427,6 +438,73 @@ def k2_times(hm, kb, a, b):
             *kb.k2_bound(a.shape[0], b.shape[0]))
 
 
+def phase_k3(dev, kb):
+    """Phase 2b: kernel K3 (the pose LM) against its plain version at the
+    tracker's shapes, and the rows of the kernel table from
+    ``kernel_bench.k3_report``'s device times in this run."""
+    import numpy as np
+    import torch
+    from slam_dynamic_tpu_torch.optim import pose_opt
+
+    n, lanes, err = kb.K3_PATH_N, K3_LANES, 0.0
+    rng = np.random.default_rng(SEED)
+    for d in (3, 2):
+        chi2 = 7.815 if d == 3 else 5.991
+        for rounds, iters in kb.K3_SCHEDULES:
+            probs = [kb.k3_problem(rng, n, d, 0.3, dev)
+                     for _ in range(lanes)]
+            before = pose_opt.launches, pose_opt.batched_launches
+            singles = [pose_opt.pose_lm(*p, rounds, iters, chi2)
+                       for p in probs]
+            cam = probs[0][0]          # shared, as the batched step's
+            batched = torch.func.vmap(
+                lambda *a: pose_opt.pose_lm(cam, *a, rounds, iters, chi2))(
+                *(torch.stack([p[k] for p in probs]) for k in range(1, 8)))
+            made = (pose_opt.launches - before[0],
+                    pose_opt.batched_launches - before[1])
+            if made != (lanes + 1, 1):
+                raise AssertionError(f"K3 launches (all, batched) {made} "
+                                     f"for {lanes} single calls and one "
+                                     f"vmap call of {lanes} lanes")
+            for b, p in enumerate(probs):
+                ref = pose_opt.pose_lm_plain(*p, rounds, iters, chi2)
+                err = max(err, kb.hold_k3(singles[b], ref, chi2))
+                if not all(torch.equal(g[b], x)
+                           for g, x in zip(batched, singles[b])):
+                    raise AssertionError(f"K3 D = {d} {rounds} x {iters}: "
+                                         f"lane {b} of the batched launch "
+                                         f"differs from its single launch")
+            log(f"phase 2b K3 pose_lm N = {n}, D = {d}, {rounds} x "
+                f"{iters}, 30% outliers: {lanes} single calls within "
+                f"tolerance of plain (R, t within 1e-4, labels off the "
+                f"gate equal, n_inliers within 1%), one vmap call of "
+                f"{lanes} lanes one launch and bit-equal with them")
+    rep = kb.k3_report()
+    frame = {}              # a tracked frame's three calls: two 2 x 6, one
+    for b in (1, lanes):    # 4 x 10; per call, in ms
+        a, c = rep[f"pose_lm_2x6_b{b}"], rep[f"pose_lm_4x10_b{b}"]
+        frame[b] = {k: (2 * a[k] + c[k]) / 3
+                    for k in ("k3_ms", "plain_ms", "bound_ms")}
+        log(f"  K3 device time, N = {n}, D = 3, B = {b}: 2 x 6 "
+            f"{a['k3_ms']:.5f} ms, 4 x 10 {c['k3_ms']:.5f} ms (host wall "
+            f"{a['k3_host_ms']:.4f} and {c['k3_host_ms']:.4f} ms); plain "
+            f"{a['plain_ms']:.4f} and {c['plain_ms']:.4f} ms device, "
+            f"{a['plain_host_ms']:.2f} and {c['plain_host_ms']:.2f} ms host "
+            f"wall; bound {a['bound_ms']:.6f} and {c['bound_ms']:.6f} ms "
+            f"({a['bound_by']})")
+    log(f"  launch floor (one tiny kernel) {rep['launch_floor_ms']:.5f} ms")
+    rows = [dict(name=name, route="cuda",
+                 source="slam_dynamic_tpu_torch/csrc/kernels.cu",
+                 replaces="none: slam_dynamic_tpu/optim/pose_opt.py:43, "
+                          "left to XLA's fusion",
+                 max_abs_err=err, ms=frame[b]["k3_ms"],
+                 plain_ms=frame[b]["plain_ms"],
+                 bound_ms=frame[b]["bound_ms"],
+                 bound_by=rep["pose_lm_2x6_b1"]["bound_by"], library_ms=None)
+            for name, b in (("pose_lm", 1), ("pose_lm_batched", lanes))]
+    return rows
+
+
 def track_frames(system, world, n_frames):
     """System.track_rgbd on the first n_frames: per-frame host times
     (each ending in a synchronize), states and keyframe count."""
@@ -454,14 +532,13 @@ def phase_system(gm, hm, kb):
     t_make = time.perf_counter()
     system = System(cfg)                   # device defaults to cuda
     make_ms = (time.perf_counter() - t_make) * 1e3
-    gm.launches = 0
-    hm.launches = 0
+    _zero_launches(gm, hm)
     calls = []
     t_run = time.perf_counter()
     with kb.recording_k1(calls):
         times, states, n_kf = track_frames(system, world, N_FRAMES)
     wall = time.perf_counter() - t_run
-    launches = {"gated_match": gm.launches, "hamming_matrix": hm.launches}
+    launches = _launches(gm, hm)
     traj = system.trajectory
     est = np.stack([-R.T @ t for _, R, t in traj])
     if not np.isfinite(est).all() or est.shape != (N_FRAMES, 3):
@@ -480,6 +557,11 @@ def phase_system(gm, hm, kb):
     if len(calls) != launches["gated_match"]:
         raise AssertionError(f"{len(calls)} K1 calls kept, "
                              f"{launches['gated_match']} launched")
+    # the motion model's two calls and the local map's in every frame
+    # after the first (BoW recovery and relocalization add their own)
+    if launches["pose_lm"] < 3 * (N_FRAMES - 1):
+        raise AssertionError(f"{launches['pose_lm']} K3 launches in "
+                             f"{N_FRAMES - 1} tracked frames")
     return launches, calls, ate_mm
 
 
@@ -489,11 +571,10 @@ def phase_chunk(gm, hm, kb):
     from slam_dynamic_tpu_torch import bench
 
     calls = []
-    gm.launches = 0
-    hm.launches = 0
+    _zero_launches(gm, hm)
     r = bench.run(CHUNK_FRAMES, CHUNK, seed=SEED,
                   warm_chunk=lambda: kb.recording_k1(calls))
-    launches = {"gated_match": gm.launches, "hamming_matrix": hm.launches}
+    launches = _launches(gm, hm)
     system = r["system"]
     tracker, loop = system.tracker, system.loop
     n_kf = sum(s.is_keyframe for s in r["stats"])
@@ -553,15 +634,14 @@ def phase_dynamic_chunk(gm, hm, kb, k2_err):
                         tuple(int(x) for x in system.boxes.status)))
         k2_after.append((hm.launches, any(s.is_keyframe for s in new)))
 
-    gm.launches = 0
-    hm.launches = 0
+    _zero_launches(gm, hm)
     # K2's inputs are copied from the second warm chunk's three
     # classifications: the first with a reference frame (the first chunk
     # classifies against the placeholder)
     r = bench.run(DYN_CHUNK_FRAMES, CHUNK, seed=SEED, dynamic=True,
                   warm_chunk=lambda: kb.recording_k2(k2_calls),
                   warm_index=1, on_step=on_step)
-    launches = {"gated_match": gm.launches, "hamming_matrix": hm.launches}
+    launches = _launches(gm, hm)
     # K2 launches per chunk after the first: the classifications, and
     # the keyframe work of the frames finalized in that call
     per_chunk = [(n - m, kf) for (m, _), (n, kf)
@@ -632,8 +712,7 @@ def phase_dynamic_frame(gm, hm):
         forms.append(bool(kw["classify"]))
         return orig(*args, **kw)
 
-    gm.launches = 0
-    hm.launches = 0
+    _zero_launches(gm, hm)
     tracking.fused_track_step_dyn = spy
     try:
         r = bench.run(DYN_FRAMES, 1, seed=SEED, dynamic=True,
@@ -642,7 +721,7 @@ def phase_dynamic_frame(gm, hm):
                           tuple(int(x) for x in s.boxes.status)))
     finally:
         tracking.fused_track_step_dyn = orig
-    launches = {"gated_match": gm.launches, "hamming_matrix": hm.launches}
+    launches = _launches(gm, hm)
     n_lost = sum(s.state != "OK" for s in r["stats"])
     n_cls = sum(forms)
     first2 = next((i for i, st in enumerate(statuses) if 2 in st), None)
@@ -692,12 +771,17 @@ def _spans_line(spans: dict) -> str:
 
 
 def _zero_launches(gm, hm):
+    """Set the launch counts of K1 (``gm``), K2 (``hm``) and K3 to 0."""
+    from slam_dynamic_tpu_torch.optim import pose_opt
     gm.launches = 0
     hm.launches = 0
+    pose_opt.launches = 0
 
 
 def _launches(gm, hm):
-    return {"gated_match": gm.launches, "hamming_matrix": hm.launches}
+    from slam_dynamic_tpu_torch.optim import pose_opt
+    return {"gated_match": gm.launches, "hamming_matrix": hm.launches,
+            "pose_lm": pose_opt.launches}
 
 
 def run_orbit(kb, loop_on: bool, k2_calls: list, frames: int = ORBIT_FRAMES,
@@ -1860,15 +1944,19 @@ def _recording_steps(kb, k1_calls, k2_calls, launched):
 
 
 def _zero_batched(gm, hm):
+    from slam_dynamic_tpu_torch.optim import pose_opt
     _zero_launches(gm, hm)
     gm.batched_launches = 0
     hm.batched_launches = 0
+    pose_opt.batched_launches = 0
 
 
 def _batched_launches(gm, hm):
-    return {"gated_match": gm.launches, "hamming_matrix": hm.launches,
+    from slam_dynamic_tpu_torch.optim import pose_opt
+    return {**_launches(gm, hm),
             "gated_match_batched": gm.batched_launches,
-            "hamming_matrix_batched": hm.batched_launches}
+            "hamming_matrix_batched": hm.batched_launches,
+            "pose_lm_batched": pose_opt.batched_launches}
 
 
 def _multi_checks(r, what, lanes):
@@ -1898,12 +1986,14 @@ def phase_multi(gm, hm, kb, k1_err, k2_err):
     import numpy as np
     from slam_dynamic_tpu_torch import bench
 
+    from slam_dynamic_tpu_torch.optim import pose_opt
     k1_calls, k2_calls, launched = [], [], [0, 0]
-    per_step = []
+    per_step, k3_per_step = [], []
 
     def on_step(ms, i, timed):
         if timed:
             per_step.append(gm.batched_launches)
+            k3_per_step.append(pose_opt.batched_launches)
 
     _zero_batched(gm, hm)
     t0 = time.perf_counter()
@@ -1914,6 +2004,7 @@ def phase_multi(gm, hm, kb, k1_err, k2_err):
     launches = _batched_launches(gm, hm)
     walls = {"run": time.perf_counter() - t0}
     k1_steps = np.diff(per_step)
+    k3_steps = np.diff(k3_per_step)
     n_lost, lens, steps = _multi_checks(r, "phase 14a", MULTI_LANES)
     ms_sorted = np.sort(r["step_ms"])
     t0 = time.perf_counter()
@@ -1946,13 +2037,17 @@ def phase_multi(gm, hm, kb, k1_err, k2_err):
         f"launch calls, {solo_prof['kernels']:.0f} on the card, "
         f"{solo_prof['syncs']:.0f} sync/copy calls, busy "
         f"{solo_prof['busy']:.3f}, {solo_prof['wall_ms']:.1f} ms; batched "
-        f"K1 launches per timed step {sorted(set(k1_steps.tolist()))} (one "
-        f"lane's fused step: 3); wall s: "
+        f"K1 and K3 launches per timed step "
+        f"{sorted(set(k1_steps.tolist()))} and "
+        f"{sorted(set(k3_steps.tolist()))} (one lane's fused step: 3 "
+        f"each); wall s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     if abs(ate_mm - solo_mm) > max(1.0, 0.2 * solo_mm) or \
             set(k1_steps.tolist()) != {3} or min(lens) != MULTI_FRAMES or \
+            set(k3_steps.tolist()) != {3} or \
             min(launches[k] for k in ("gated_match", "hamming_matrix",
-                                      "gated_match_batched")) <= 0:
+                                      "gated_match_batched",
+                                      "pose_lm_batched")) <= 0:
         raise AssertionError("multi phase failed its checks")
     if len(k1_calls) != 3 * RECORD_STEPS or k2_calls or \
             launched != [len(k1_calls), 0]:
@@ -2387,6 +2482,7 @@ def main():
 
     k1_err = timed("1", phase_k1, dev, gm, kb, hm.INVALID)
     k2_err = timed("2", phase_k2, dev, hm, kb)
+    k3_row, k3b_row = timed("2b", phase_k3, dev, kb)
     frame_launches, calls, frame_ate_mm = timed("3", phase_system, gm, hm,
                                                 kb)
     k1_row = timed("4", phase_k1_path, gm, kb, calls, k1_err)
@@ -2429,10 +2525,11 @@ def main():
                    "multi_stereo": multi_stereo_launches,
                    "depth_stride": stride_launches, "mesh": mesh_launches,
                    **paths15}
-    for r in (k1b_row, k2b_row):
+    k3b_row["launches"] = multi_launches["pose_lm_batched"]
+    for r in (k1b_row, k2b_row, k3b_row):
         r["launches_per_phase"] = {k: v[r["name"]]
                                    for k, v in lane_phases.items()}
-    rows = [k1_row, k2_row]
+    rows = [k1_row, k2_row, k3_row]
     for r in rows:
         r["launches"] = chunk_launches[r["name"]]
         r["launches_per_phase"] = {
@@ -2450,7 +2547,7 @@ def main():
             "track_chunk_online": online_launches[r["name"]],
             **{k: v[r["name"]] for k, v in cli_launches.items()},
             **{k: v[r["name"]] for k, v in lane_phases.items()}}
-    rows += [k1b_row, k2b_row]
+    rows += [k1b_row, k2b_row, k3b_row]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_per_phase"]

@@ -11,7 +11,7 @@
 // Descriptors are [rows, 8] 32-bit words (the int32 bit view of the JAX
 // package's uint32 lanes): 256 bits per ORB descriptor.
 //
-// Both kernels take the Hamming distances from the binary tensor-core
+// K1 and K2 take the Hamming distances from the binary tensor-core
 // product (BMMA on sm_90a):
 //   mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc
 // gives popc(a & b) for a 16 x 8 tile of descriptor pairs in one
@@ -26,6 +26,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace cg = cooperative_groups;
 
@@ -488,6 +490,576 @@ hamming_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3: the tracker's motion-only pose Levenberg-Marquardt, one whole
+// optimize_pose call (optim/pose_opt.py, with the terms of
+// optim/residuals.py and the group operations of utils/se3.py) per block.
+//
+// K3 replaces no Pallas kernel: the JAX package left this loop to XLA,
+// which fuses each iteration into a few ops. Op by op on this card the
+// loop is about 80 small launches per evaluation of the terms, 260-280
+// per LM iteration and about 17k per tracked frame, and the host's
+// dispatch of them, not the card, bounded the tracker.
+//
+// Bound on H100: about 160 fp32 operations per observation and pass at D
+// = 3 (the projection, the Jacobian rows, the 27 sums of the normal
+// equations), so 2048 observations x 45 passes are about 15 M
+// operations, under half a microsecond at the card's fp32 rate, and the
+// inputs are 70 KB. Neither bounds it: a call is a serial chain of
+// rounds x (iters + 1) + 1 passes (15 at the motion model's 2 x 6, 45 at
+// the local map's 4 x 10: 75 for a tracked frame's 64 LM iterations),
+// each ending in a block-wide reduction, two barriers and a 6x6 solve on
+// one thread, and the latency of that chain and the launch set its time:
+// about 6 us a pass on the H100 (0.094 ms at 2 x 6, 0.276 ms at 4 x 10,
+// N = 2048, D = 3, kernel_bench.py --k3), the same for 16 lanes.
+// Design:
+// - one block of K3_THREADS threads per problem (a batched launch puts
+//   lane b in blockIdx.x, its arrays at b times their per-lane size), a
+//   block-stride loop over the N observations; a thread owns the same
+//   observations in every pass, so the inlier flags it writes are read
+//   back by itself alone;
+// - the observations are staged once into shared memory when they fit
+//   (33 bytes each at D = 3: 2048 take 67.6 KB, 5000 take 165 KB); above
+//   K3_MAX_STAGED the passes read them where they are (L1 and L2), the
+//   same code through generic pointers, with the flags in the inliers
+//   output;
+// - one pass over the observations per LM iteration: the pass at the
+//   candidate pose accumulates the candidate's robust cost and its normal
+//   equations (H's 21 upper entries and b's 6) under the round's weights.
+//   On acceptance they are the next iteration's system (the plain loop
+//   evaluates the terms at the accepted pose again and gets the same
+//   values); on rejection the stored ones stay. Only a round's first
+//   pass, after the chi2 relabelling changed the weights, is extra, and
+//   the last pass relabels and writes chi2 at the orthonormalised pose;
+// - an observation that is not an inlier, or carries zero information,
+//   adds exact zeros to every sum of the plain loop (a zero weight and a
+//   zero cost mask) and is skipped;
+// - the 28 sums are reduced in a fixed order with no atomics (each
+//   thread's observations in order, a shuffle tree in each warp, the
+//   warps' partials in order), so the same inputs give the same bits on
+//   every run and in every lane of a batched launch;
+// - thread 0 keeps the accepted pose, its system and lambda in
+//   registers, decides acceptance (a cost not below the stored one, NaN
+//   included, rejects; lambda halves on acceptance and quadruples on
+//   rejection), solves (H + lambda diag(H) + 1e-9 I) dx = b by LU with
+//   partial pivoting (torch.linalg.solve_ex's method), retracts by the
+//   SE(3) exponential and publishes the candidate in shared memory.
+//   Everything is float32.
+// ---------------------------------------------------------------------------
+constexpr int K3_THREADS = 256;
+constexpr int K3_WARPS = K3_THREADS / 32;
+constexpr int K3_SUMS = 28;  // H's 21 upper entries, b's 6, the cost
+constexpr int K3_COST = 27;
+constexpr size_t K3_MAX_STAGED = 200 * 1024;  // dynamic shared memory
+constexpr int K3_HUBER_ROUNDS = 2;  // rounds weighted by the Huber kernel
+constexpr int K3_MAX_DEVICES = 64;
+constexpr uint8_t kObsValid = 1, kObsInlier = 2;
+
+struct K3Cam {
+  float fx, fy, cx, cy, bf;
+};
+
+struct K3Obs {
+  float X, Y, Z, u, v, ur, isig, urw;
+};
+
+// residuals, d r / d twist, chi2 and camera-frame depth of one observation
+template <int D>
+struct K3Terms {
+  float r[D];
+  float J[D][6];
+  float chi2, z;
+};
+
+// Bytes of shared memory that stage n observations of dimension D.
+template <int D>
+__host__ __device__ constexpr size_t k3_staged_bytes(int n) {
+  return (size_t)n * (4 * (3 + D + 1 + (D == 3 ? 1 : 0)) + 1);
+}
+
+template <int D>
+__device__ __forceinline__ K3Obs k3_load(const float* xw, const float* obs,
+                                         const float* isig, const float* urw,
+                                         int i) {
+  K3Obs o;
+  o.X = xw[3 * i];
+  o.Y = xw[3 * i + 1];
+  o.Z = xw[3 * i + 2];
+  o.u = obs[D * i];
+  o.v = obs[D * i + 1];
+  o.ur = D == 3 ? obs[D * i + 2] : 0.f;
+  o.isig = isig[i];
+  o.urw = D == 3 ? urw[i] : 1.f;
+  return o;
+}
+
+// A row (p, q, s) of d project / d x_cam times [I | -hat(x_cam)].
+__device__ __forceinline__ void k3_row(float* J, float p, float q, float s,
+                                       float x, float y, float z) {
+  J[0] = p;
+  J[1] = q;
+  J[2] = s;
+  J[3] = q * -z + s * y;
+  J[4] = p * z + s * -x;
+  J[5] = p * -y + q * x;
+}
+
+// optim/residuals.py reprojection_terms at pose P (R row-major, then t).
+template <int D>
+__device__ __forceinline__ void k3_terms(const K3Cam& c, const float* P,
+                                         const K3Obs& o, K3Terms<D>& T) {
+  const float x = P[0] * o.X + P[1] * o.Y + P[2] * o.Z + P[9];
+  const float y = P[3] * o.X + P[4] * o.Y + P[5] * o.Z + P[10];
+  const float z = P[6] * o.X + P[7] * o.Y + P[8] * o.Z + P[11];
+  const float zs = fabsf(z) < 1e-9f ? 1e-9f : z;
+  const float u = c.fx * x / zs + c.cx;
+  const float v = c.fy * y / zs + c.cy;
+  const float zi = 1.f / zs, zi2 = zi * zi;
+  T.r[0] = u - o.u;
+  T.r[1] = v - o.v;
+  k3_row(T.J[0], c.fx * zi, 0.f, -c.fx * x * zi2, x, y, z);
+  k3_row(T.J[1], 0.f, c.fy * zi, -c.fy * y * zi2, x, y, z);
+  float e = T.r[0] * T.r[0] + T.r[1] * T.r[1];
+  if constexpr (D == 3) {
+    T.r[2] = (u - c.bf / zs - o.ur) * o.urw;
+    k3_row(T.J[2], c.fx * zi * o.urw, 0.f * o.urw,
+           (-c.fx * x * zi2 + c.bf * zi2) * o.urw, x, y, z);
+    e += T.r[2] * T.r[2];
+  }
+  T.chi2 = e * o.isig;
+  T.z = z;
+}
+
+// sqrt(max(chi2, 1e-12)) with NaN kept, as torch.clamp keeps it
+__device__ __forceinline__ float k3_root(float chi2) {
+  return sqrtf(chi2 < 1e-12f ? 1e-12f : chi2);
+}
+
+template <int D>
+__device__ __forceinline__ void k3_accumulate(float (&acc)[K3_SUMS],
+                                              const K3Terms<D>& T, float w,
+                                              float cost) {
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    float jw[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) jw[i] = T.J[k][i] * w;
+    int e = 0;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int j = i; j < 6; ++j) acc[e++] += jw[i] * T.J[k][j];
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) acc[21 + i] += jw[i] * T.r[k];
+  }
+  acc[K3_COST] += cost;
+}
+
+// The block's sums of acc, in a fixed order, into s_sum (read by warp 0
+// after the call: the other warps may already be past it).
+__device__ __forceinline__ void k3_reduce(float (&acc)[K3_SUMS],
+                                          float (*s_part)[K3_SUMS],
+                                          float* s_sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K3_SUMS; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc[k] += __shfl_down_sync(0xffffffffu, acc[k], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K3_SUMS; ++k) s_part[warp][k] = acc[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    if (lane < K3_SUMS) {
+      float v = s_part[0][lane];
+#pragma unroll
+      for (int w = 1; w < K3_WARPS; ++w) v += s_part[w][lane];
+      s_sum[lane] = v;
+    }
+    __syncwarp();
+  }
+}
+
+// (H + lam diag(H) + 1e-9 I) dx = b from the sums (b = -the sums' J^T W
+// r): LU with partial pivoting (the first row of largest magnitude), then
+// the two triangular solves, as LAPACK's sgesv.
+__device__ __forceinline__ void k3_solve(const float (&sys)[K3_SUMS],
+                                         float lam, float (&dx)[6]) {
+  float A[6][6], b[6];
+  int e = 0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int j = i; j < 6; ++j) {
+      A[i][j] = sys[e];
+      A[j][i] = sys[e];
+      ++e;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    A[i][i] = (A[i][i] + lam * A[i][i]) + 1e-9f;
+    b[i] = -sys[21 + i];
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    int p = k;
+    float best = fabsf(A[k][k]);
+#pragma unroll
+    for (int i = k + 1; i < 6; ++i) {
+      if (fabsf(A[i][k]) > best) {
+        best = fabsf(A[i][k]);
+        p = i;
+      }
+    }
+#pragma unroll
+    for (int i = k + 1; i < 6; ++i) {
+      if (i == p) {
+#pragma unroll
+        for (int j = 0; j < 6; ++j) {
+          const float s = A[k][j];
+          A[k][j] = A[i][j];
+          A[i][j] = s;
+        }
+        const float s = b[k];
+        b[k] = b[i];
+        b[i] = s;
+      }
+    }
+#pragma unroll
+    for (int i = k + 1; i < 6; ++i) {
+      const float l = A[i][k] / A[k][k];
+#pragma unroll
+      for (int j = k + 1; j < 6; ++j) A[i][j] -= l * A[k][j];
+      b[i] -= l * b[k];
+    }
+  }
+#pragma unroll
+  for (int i = 5; i >= 0; --i) {
+    float s = b[i];
+#pragma unroll
+    for (int j = i + 1; j < 6; ++j) s -= A[i][j] * dx[j];
+    dx[i] = s / A[i][i];
+  }
+}
+
+__device__ __forceinline__ void k3_mat3(const float* A, const float* B,
+                                        float* C) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      C[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] +
+                     A[3 * i + 2] * B[6 + j];
+  }
+}
+
+// utils/se3.py se3_retract: exp(dx) o P into Q.
+__device__ __forceinline__ void k3_retract(const float* P,
+                                           const float (&dx)[6], float* Q) {
+  const float w0 = dx[3], w1 = dx[4], w2 = dx[5];
+  const float th = sqrtf(w0 * w0 + w1 * w1 + w2 * w2 + 1e-24f);
+  const bool small = th < 1e-4f;
+  const float th2 = th * th;
+  const float ths = small ? 1.f : th;
+  const float sn = sinf(ths), cs = cosf(ths);
+  const float sinc = small ? 1.f - th2 / 6.f : sn / ths;
+  const float cosc = small ? 0.5f - th2 / 24.f : (1.f - cs) / (ths * ths);
+  const float bc =
+      small ? 1.f / 6.f - th2 / 120.f : (ths - sn) / (ths * ths * ths);
+  const float K[9] = {0.f, -w2, w1, w2, 0.f, -w0, -w1, w0, 0.f};
+  float K2[9], dR[9], J[9];
+  k3_mat3(K, K, K2);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const float eye = i % 4 == 0 ? 1.f : 0.f;
+    dR[i] = eye + sinc * K[i] + cosc * K2[i];
+    J[i] = eye + cosc * K[i] + bc * K2[i];
+  }
+  k3_mat3(dR, P, Q);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float dt = J[3 * i] * dx[0] + J[3 * i + 1] * dx[1] +
+                     J[3 * i + 2] * dx[2];
+    Q[9 + i] = dR[3 * i] * P[9] + dR[3 * i + 1] * P[10] +
+               dR[3 * i + 2] * P[11] + dt;
+  }
+}
+
+// utils/se3.py orthonormalize: the quaternion round trip (Shepperd's
+// largest pivot, first on ties) of R into Q's rotation.
+__device__ __forceinline__ void k3_orthonormalize(const float* R, float* Q) {
+  const float m00 = R[0], m01 = R[1], m02 = R[2];
+  const float m10 = R[3], m11 = R[4], m12 = R[5];
+  const float m20 = R[6], m21 = R[7], m22 = R[8];
+  const float tr = m00 + m11 + m22;
+  const float piv[4] = {tr, m00 - m11 - m22, -m00 + m11 - m22,
+                        -m00 - m11 + m22};
+  int k = 0;
+#pragma unroll
+  for (int i = 1; i < 4; ++i)
+    if (piv[i] > piv[k]) k = i;
+  const float arg = k == 0   ? 1.f + tr
+                    : k == 1 ? 1.f + m00 - m11 - m22
+                    : k == 2 ? 1.f - m00 + m11 - m22
+                             : 1.f - m00 - m11 + m22;
+  const float r = sqrtf(arg < 1e-8f ? 1e-8f : arg) * 0.5f;
+  const float f = 4.f * r;
+  float q[4];
+  if (k == 0) {
+    q[0] = r; q[1] = (m21 - m12) / f; q[2] = (m02 - m20) / f;
+    q[3] = (m10 - m01) / f;
+  } else if (k == 1) {
+    q[0] = (m21 - m12) / f; q[1] = r; q[2] = (m01 + m10) / f;
+    q[3] = (m02 + m20) / f;
+  } else if (k == 2) {
+    q[0] = (m02 - m20) / f; q[1] = (m01 + m10) / f; q[2] = r;
+    q[3] = (m12 + m21) / f;
+  } else {
+    q[0] = (m10 - m01) / f; q[1] = (m02 + m20) / f; q[2] = (m12 + m21) / f;
+    q[3] = r;
+  }
+  // normalised, w >= 0, then normalised again by rot_from_quat
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    const float nrm =
+        sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
+    const float sgn = pass == 0 && q[0] / nrm < 0.f ? -1.f : 1.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = q[i] / nrm * sgn;
+  }
+  const float w = q[0], x = q[1], y = q[2], z = q[3];
+  Q[0] = 1.f - 2.f * (y * y + z * z);
+  Q[1] = 2.f * (x * y - w * z);
+  Q[2] = 2.f * (x * z + w * y);
+  Q[3] = 2.f * (x * y + w * z);
+  Q[4] = 1.f - 2.f * (x * x + z * z);
+  Q[5] = 2.f * (y * z - w * x);
+  Q[6] = 2.f * (x * z - w * y);
+  Q[7] = 2.f * (y * z + w * x);
+  Q[8] = 1.f - 2.f * (x * x + y * y);
+}
+
+template <int D>
+__global__ void __launch_bounds__(K3_THREADS)
+pose_lm_kernel(const float* __restrict__ cam, const float* __restrict__ R0,
+               const float* __restrict__ t0, const float* xw,
+               const float* obs, const float* isig,
+               const uint8_t* __restrict__ valid, const float* urw,
+               float* __restrict__ R_out, float* __restrict__ t_out,
+               uint8_t* inl_out, int32_t* __restrict__ n_inl_out,
+               float* __restrict__ chi2_out, int n, int rounds, int iters,
+               float chi2_th, int staged) {
+  const size_t lane_b = blockIdx.x;
+  cam += 5 * lane_b;
+  R0 += 9 * lane_b;
+  t0 += 3 * lane_b;
+  xw += lane_b * n * 3;
+  obs += lane_b * n * D;
+  isig += lane_b * n;
+  valid += lane_b * n;
+  urw += lane_b * n;
+  R_out += 9 * lane_b;
+  t_out += 3 * lane_b;
+  inl_out += lane_b * n;
+  n_inl_out += lane_b;
+  chi2_out += lane_b * n;
+
+  extern __shared__ __align__(16) unsigned char k3_smem[];
+  __shared__ float s_part[K3_WARPS][K3_SUMS];
+  __shared__ float s_sum[K3_SUMS];
+  __shared__ float s_pose[12];   // the pose the next pass evaluates
+  __shared__ float s_orth[12];   // the result: R orthonormalised, t
+  __shared__ int s_count[K3_WARPS];
+  const int tid = threadIdx.x;
+
+  uint8_t* flags = inl_out;
+  if (staged) {
+    float* f = (float*)k3_smem;
+    float* s_xw = f;
+    float* s_obs = s_xw + 3 * n;
+    float* s_isig = s_obs + D * n;
+    float* s_urw = s_isig + n;
+    uint8_t* s_flags = (uint8_t*)(s_urw + (D == 3 ? n : 0));
+    for (int i = tid; i < 3 * n; i += K3_THREADS) s_xw[i] = xw[i];
+    for (int i = tid; i < D * n; i += K3_THREADS) s_obs[i] = obs[i];
+    for (int i = tid; i < n; i += K3_THREADS) {
+      s_isig[i] = isig[i];
+      if (D == 3) s_urw[i] = urw[i];
+    }
+    xw = s_xw;
+    obs = s_obs;
+    isig = s_isig;
+    urw = s_urw;
+    flags = s_flags;
+  }
+  for (int i = tid; i < n; i += K3_THREADS)
+    flags[i] = valid[i] ? (kObsValid | kObsInlier) : 0;
+
+  const K3Cam c = {cam[0], cam[1], cam[2], cam[3], cam[4]};
+  const float delta = sqrtf(chi2_th), d2 = delta * delta;
+  // thread 0's state: the accepted pose, its system, lambda
+  float P[12], sys[K3_SUMS], lam = 1e-3f;
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) P[i] = R0[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) P[9 + i] = t0[i];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) s_pose[i] = P[i];
+  }
+  __syncthreads();
+
+  for (int rnd = 0; rnd < rounds; ++rnd) {
+    const bool huber = rnd < K3_HUBER_ROUNDS;
+    // pass 0 at the accepted pose (relabelled first after round 0), pass
+    // it > 0 at the candidate of iteration it - 1
+    for (int it = 0; it <= iters; ++it) {
+      const bool relabel = it == 0 && rnd > 0;
+      float Q[12];
+#pragma unroll
+      for (int i = 0; i < 12; ++i) Q[i] = s_pose[i];
+      float acc[K3_SUMS];
+#pragma unroll
+      for (int k = 0; k < K3_SUMS; ++k) acc[k] = 0.f;
+      for (int i = tid; i < n; i += K3_THREADS) {
+        uint8_t fl = flags[i];
+        if (!(fl & (relabel ? kObsValid : kObsInlier))) continue;
+        const K3Obs o = k3_load<D>(xw, obs, isig, urw, i);
+        K3Terms<D> T;
+        k3_terms<D>(c, Q, o, T);
+        if (relabel) {
+          fl = T.chi2 <= chi2_th && T.z > 1e-3f ? (kObsValid | kObsInlier)
+                                                 : kObsValid;
+          flags[i] = fl;
+          if (!(fl & kObsInlier)) continue;
+        }
+        if (o.isig == 0.f) continue;
+        float w = o.isig * (T.z > 1e-3f ? 1.f : 0.f);
+        const float e = k3_root(T.chi2);
+        if (huber) w *= T.chi2 <= d2 ? 1.f : delta / e;
+        const float rho = T.chi2 <= d2 ? T.chi2 : 2.f * delta * e - d2;
+        k3_accumulate<D>(acc, T, w, (o.isig > 0.f ? 1.f : 0.f) * rho);
+      }
+      k3_reduce(acc, s_part, s_sum);
+      if (tid == 0) {
+        if (it == 0) {
+#pragma unroll
+          for (int k = 0; k < K3_SUMS; ++k) sys[k] = s_sum[k];
+          lam = 1e-3f;
+        } else if (s_sum[K3_COST] < sys[K3_COST]) {
+#pragma unroll
+          for (int k = 0; k < K3_SUMS; ++k) sys[k] = s_sum[k];
+#pragma unroll
+          for (int i = 0; i < 12; ++i) P[i] = Q[i];
+          lam *= 0.5f;
+        } else {
+          lam *= 4.f;
+        }
+        if (it < iters) {
+          float dx[6];
+          k3_solve(sys, lam, dx);
+          k3_retract(P, dx, s_pose);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 12; ++i) s_pose[i] = P[i];
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // the last relabelling at the accepted pose, chi2 at the result
+  if (tid == 0) {
+    k3_orthonormalize(s_pose, s_orth);
+#pragma unroll
+    for (int i = 9; i < 12; ++i) s_orth[i] = s_pose[i];
+  }
+  __syncthreads();
+  float Q[12], F[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    Q[i] = s_pose[i];
+    F[i] = s_orth[i];
+  }
+  int count = 0;
+  for (int i = tid; i < n; i += K3_THREADS) {
+    const uint8_t fl = flags[i];
+    const K3Obs o = k3_load<D>(xw, obs, isig, urw, i);
+    K3Terms<D> T;
+    bool inl = (fl & kObsInlier) != 0;
+    if (rounds > 0) {
+      inl = false;
+      if (fl & kObsValid) {
+        k3_terms<D>(c, Q, o, T);
+        inl = T.chi2 <= chi2_th && T.z > 1e-3f;
+      }
+    }
+    k3_terms<D>(c, F, o, T);
+    chi2_out[i] = T.chi2;
+    inl_out[i] = inl;
+    count += inl;
+  }
+  count = __reduce_add_sync(0xffffffffu, count);
+  if ((tid & 31) == 0) s_count[tid >> 5] = count;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < K3_WARPS; ++w) total += s_count[w];
+    *n_inl_out = total;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) R_out[i] = s_orth[i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) t_out[i] = s_orth[9 + i];
+  }
+}
+
+// Lets pose_lm_kernel<D> take K3_MAX_STAGED bytes of dynamic shared
+// memory on the current device: set once per device, since the attribute
+// lasts; the first call returns the error if it fails.
+template <int D>
+cudaError_t k3_allow_staging() {
+  static std::atomic<bool> done[K3_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < K3_MAX_DEVICES && done[dev].load(std::memory_order_relaxed))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(pose_lm_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)K3_MAX_STAGED);
+  if (err == cudaSuccess && dev < K3_MAX_DEVICES)
+    done[dev].store(true, std::memory_order_relaxed);
+  return err;
+}
+
+template <int D>
+int k3_launch(const void* cam, const void* R0, const void* t0,
+              const void* xw, const void* obs, const void* isig,
+              const void* valid, const void* urw, void* R_out, void* t_out,
+              void* inl_out, void* n_inl_out, void* chi2_out, int lanes,
+              int n, int rounds, int iters, float chi2_th,
+              cudaStream_t stream) {
+  const size_t bytes = k3_staged_bytes<D>(n);
+  const bool staged = bytes <= K3_MAX_STAGED;
+  if (staged && bytes > 48 * 1024) {
+    const cudaError_t err = k3_allow_staging<D>();
+    if (err != cudaSuccess) return (int)err;
+  }
+  pose_lm_kernel<D><<<lanes, K3_THREADS, staged ? bytes : 0, stream>>>(
+      (const float*)cam, (const float*)R0, (const float*)t0,
+      (const float*)xw, (const float*)obs, (const float*)isig,
+      (const uint8_t*)valid, (const float*)urw, (float*)R_out,
+      (float*)t_out, (uint8_t*)inl_out, (int32_t*)n_inl_out,
+      (float*)chi2_out, n, rounds, iters, chi2_th, staged);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -544,6 +1116,34 @@ int slam_gated_match(const void* kp_desc, const void* kp_xy,
 int slam_hamming_matrix(const void* a, const void* b, void* out, int n,
                         int m, void* stream) {
   return slam_hamming_batched(a, b, out, 1, n, m, stream);
+}
+
+// B lanes of slam_pose_lm in one launch, one block each: lane b's arrays
+// start at b times their per-lane size. d = 2 (mono) or 3 (stereo).
+int slam_pose_lm_batched(const void* cam, const void* R0, const void* t0,
+                         const void* xw, const void* obs, const void* isig,
+                         const void* valid, const void* urw, void* R_out,
+                         void* t_out, void* inl_out, void* n_inl_out,
+                         void* chi2_out, int lanes, int n, int d, int rounds,
+                         int iters, float chi2_th, void* stream) {
+  if (d != 2 && d != 3) return (int)cudaErrorInvalidValue;
+  if (lanes <= 0) return (int)cudaGetLastError();
+  return (d == 2 ? k3_launch<2> : k3_launch<3>)(
+      cam, R0, t0, xw, obs, isig, valid, urw, R_out, t_out, inl_out,
+      n_inl_out, chi2_out, lanes, n, rounds, iters, chi2_th,
+      (cudaStream_t)stream);
+}
+
+// One pose problem: the batched launch with B = 1.
+int slam_pose_lm(const void* cam, const void* R0, const void* t0,
+                 const void* xw, const void* obs, const void* isig,
+                 const void* valid, const void* urw, void* R_out,
+                 void* t_out, void* inl_out, void* n_inl_out, void* chi2_out,
+                 int n, int d, int rounds, int iters, float chi2_th,
+                 void* stream) {
+  return slam_pose_lm_batched(cam, R0, t0, xw, obs, isig, valid, urw, R_out,
+                              t_out, inl_out, n_inl_out, chi2_out, 1, n, d,
+                              rounds, iters, chi2_th, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """Device-side timing and least-time bounds of the port's CUDA kernels.
 
     python -m slam_dynamic_tpu_torch.kernel_bench --old-source OLD.cu
+    python -m slam_dynamic_tpu_torch.kernel_bench --k3
 
 builds ``OLD.cu`` (another revision of ``csrc/kernels.cu`` with the same
 C entry points) beside this checkout's kernels and times K1 and K2 of both
@@ -8,6 +9,8 @@ on one card, in turns (old, new, new, old): K1 on a random 2048 x 2048
 problem and on the inputs of every K1 call of ``PATH_FRAMES`` frames of
 ``System.track_rgbd`` on the bench world, K2 at the main path's 2048 x
 2048. It checks that both give the same results and prints one JSON line.
+``--k3`` times K3 (the pose LM) at the tracker's shapes beside its plain
+version and prints one JSON line.
 ``chip_smoke.py`` takes its kernel timings and bounds from the helpers
 here. Needs a CUDA card.
 
@@ -21,6 +24,7 @@ import argparse
 import contextlib
 import json
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -54,6 +58,15 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # needs none.
 K1_FP32_OPS_PER_PAIR = 6
 K1_INT32_OPS_PER_PAIR = 6
+
+# K3's fp32 operations per observation and pass (a multiply-add counts
+# one), the fewest the function needs, by D: the transform 9, the
+# projection and its Jacobian rows about 25 (D = 2) or 32 (D = 3), the
+# residuals and chi2 2 D + 1, the robust weight and cost 8, and the
+# normal equations 33 per row (6 products J w, 21 of H, 6 of b).
+K3_FP32_OPS_PER_OBS = {2: 117, 3: 157}
+K3_SCHEDULES = ((2, 6), (4, 10))   # the motion model's, the local map's
+K3_PATH_N = 2048                   # the tracker's observations (keypoints)
 
 REPS = 20       # launches captured in one graph
 REPLAYS = 10    # graph replays between the events
@@ -137,6 +150,16 @@ def k2_bound(n: int, m: int, lanes: int = 1):
                  tc_ops=lanes * 2 * 256 * n * m)
 
 
+def k3_bound(n: int, d: int, rounds: int, iters: int, lanes: int = 1):
+    """Least time of one K3 launch: every pass (rounds x (iters + 1) + 1)
+    needs each observation's terms and sums; the inputs are read and the
+    outputs written once."""
+    passes = rounds * (iters + 1) + 1
+    per_lane = n * (4 * (3 + d + 2) + 1 + 1 + 4) + 4 * (5 + 12 + 12 + 1)
+    return bound(lanes * per_lane,
+                 fp32_ops=lanes * passes * n * K3_FP32_OPS_PER_OBS[d])
+
+
 def k1_problem(rng, n, m, dup_frac=0.0, dev=None):
     """Random gated-match inputs at the main path's types (descriptors as
     int32 bit views), as numpy arrays, or as tensors on ``dev``.
@@ -163,6 +186,75 @@ def k1_problem(rng, n, m, dup_frac=0.0, dev=None):
         return arrays
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in arrays]
+
+
+def k3_problem(rng, n, d=3, outliers=0.3, dev="cpu", case="random",
+               noise=0.5, start=1.0):
+    """A pose problem at ``pose_lm``'s types: ``n`` points 4-12 m in front
+    of a camera (fx 500, bf 50), observed from a true pose with ``noise``
+    px of noise in D = ``d`` values (u, v, u_right), ``outliers`` of them
+    moved 30-120 px, 95% valid, 80% with stereo depth (``ur_weight``), and
+    a start pose ``start`` x (0.15 rad, 0.05 m) off the truth. ``case``:
+    "random", "none_valid", "three_valid", "behind" (every point behind
+    the camera). Returns [cam, R0, t0, xw, obs, inv_sigma2, valid,
+    ur_weight] on ``dev``."""
+    from .utils.se3 import se3_exp, se3_retract
+    cam = np.array([500.0, 500.0, 320.0, 240.0, 50.0 if d == 3 else 0.0],
+                   np.float32)
+    pts = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
+                    rng.uniform(4, 12, n)], 1).astype(np.float32)
+    if case == "behind":
+        pts[:, 2] *= -1
+    xi = np.concatenate([rng.normal(0, 0.3, 3), rng.normal(0, 0.1, 3)])
+    R, t = se3_exp(torch.tensor(xi, dtype=torch.float32))
+    xc = (pts @ R.numpy().T + t.numpy()).astype(np.float32)
+    z = xc[:, 2]
+    u = cam[0] * xc[:, 0] / z + cam[2]
+    v = cam[1] * xc[:, 1] / z + cam[3]
+    obs = np.stack([u, v, u - cam[4] / z][:d], 1).astype(np.float32)
+    obs += rng.normal(0, noise, obs.shape).astype(np.float32)
+    k = int(round(n * outliers))
+    if k:
+        idx = rng.choice(n, k, replace=False)
+        obs[idx, :2] += (rng.uniform(30, 120, (k, 2))
+                         * rng.choice([-1, 1], (k, 2))).astype(np.float32)
+    dxi = start * np.concatenate([rng.normal(0, 0.15, 3),
+                                  rng.normal(0, 0.05, 3)])
+    R0, t0 = se3_retract(R, t, torch.tensor(dxi, dtype=torch.float32))
+    inv_s2 = (1.2 ** (-2.0 * rng.integers(0, 4, n))).astype(np.float32)
+    valid = rng.uniform(size=n) < 0.95
+    if case == "none_valid":
+        valid[:] = False
+    elif case == "three_valid":
+        valid[:] = False
+        valid[rng.choice(n, min(3, n), replace=False)] = True
+    urw = (rng.uniform(size=n) < 0.8).astype(np.float32)
+    out = [torch.from_numpy(cam), R0, t0] + [
+        torch.from_numpy(np.ascontiguousarray(a))
+        for a in (pts, obs, inv_s2, valid, urw)]
+    return [x.contiguous().to(dev) for x in out]
+
+
+def hold_k3(got, ref, chi2_th: float) -> float:
+    """K3's result against its plain version's on the same problem:
+    R and t within 1e-4, inlier labels equal except for observations
+    whose chi2 lies within 1% of the gate, n_inliers within 1%, chi2 of
+    the plain version's shape and finite. Raises if not; returns the
+    largest difference in R and t."""
+    err = max(float((g - r).abs().max()) for g, r in zip(got[:2], ref[:2]))
+    if not err <= 1e-4:
+        raise AssertionError(f"K3: R, t differ from plain by {err}")
+    near_gate = (ref[4] / chi2_th - 1).abs() <= 0.01
+    differ = got[2] != ref[2]
+    if bool((differ & ~near_gate).any()):
+        raise AssertionError(f"K3: {int(differ.sum())} inlier labels "
+                             f"differ from plain away from the gate")
+    n_got, n_ref = int(got[3]), int(ref[3])
+    if abs(n_got - n_ref) > 0.01 * n_ref:
+        raise AssertionError(f"K3: {n_got} inliers, plain {n_ref}")
+    if got[4].shape != ref[4].shape or not bool(torch.isfinite(got[4]).all()):
+        raise AssertionError("K3: chi2 of another shape or not finite")
+    return err
 
 
 def desc_pair(rng, n, m, dev):
@@ -354,15 +446,81 @@ def compare(old_source: Path) -> dict:
     return result
 
 
+def host_ms(fn, calls: int = 5) -> float:
+    """Wall time of one eager ``fn()`` in ms, the card synchronised after
+    ``calls`` calls: what a caller pays when the host's dispatch is the
+    limit."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def k3_report() -> dict:
+    """K3 at the tracker's shapes (K3_PATH_N stereo observations, both
+    schedules, one lane and 16 in one launch, as the op's vmap rule makes
+    it) beside its plain
+    version: the device time of each by CUDA-graph replay, the host's wall
+    time of an eager call, and K3's least time."""
+    from .optim import pose_opt
+    dev = torch.device("cuda")
+    n, d, chi2 = K3_PATH_N, 3, 7.815
+    rng = np.random.default_rng(0)
+    result = {"device": torch.cuda.get_device_name(0), "n": n, "d": d}
+    for rounds, iters in K3_SCHEDULES:
+        for lanes in (1, 16):
+            probs = [k3_problem(rng, n, d, 0.3, dev) for _ in range(lanes)]
+            if lanes == 1:
+                args = probs[0]
+
+                def k3(a=args, r=rounds, i=iters):
+                    return pose_opt.pose_lm(*a, r, i, chi2)
+
+                def plain(a=args, r=rounds, i=iters):
+                    return pose_opt.pose_lm_plain(*a, r, i, chi2)
+            else:
+                args = [torch.stack([p[k] for p in probs])
+                        for k in range(8)]
+
+                def k3(a=args, r=rounds, i=iters):
+                    return pose_opt.launch_k3(*a, r, i, chi2)
+
+                def plain(a=args, r=rounds, i=iters):
+                    return torch.func.vmap(
+                        lambda *x: pose_opt.pose_lm_plain(*x, r, i, chi2))(
+                        *a)
+            bound_ms, by = k3_bound(n, d, rounds, iters, lanes)
+            k3_ms = device_ms(k3)
+            result[f"pose_lm_{rounds}x{iters}_b{lanes}"] = {
+                "k3_ms": k3_ms, "k3_host_ms": host_ms(k3),
+                "plain_ms": device_ms(plain, reps=1, replays=3),
+                "plain_host_ms": host_ms(plain, calls=2),
+                "bound_ms": bound_ms, "bound_by": by,
+                "roofline_pct": 100 * bound_ms / k3_ms}
+    one = torch.zeros(1, device=dev)
+    result["launch_floor_ms"] = device_ms(lambda: one.add_(1))
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--old-source", type=Path, required=True,
+    parser.add_argument("--old-source", type=Path,
                         help="another revision of csrc/kernels.cu")
+    parser.add_argument("--k3", action="store_true",
+                        help="time K3 beside its plain version")
     args = parser.parse_args(argv)
+    if args.old_source is None and not args.k3:
+        parser.error("give --old-source, --k3 or both")
     if not torch.cuda.is_available():
         print("kernel_bench: needs a CUDA card", file=sys.stderr)
         return 1
-    print(json.dumps(compare(args.old_source)), flush=True)
+    if args.old_source is not None:
+        print(json.dumps(compare(args.old_source)), flush=True)
+    if args.k3:
+        print(json.dumps(k3_report()), flush=True)
     return 0
 
 

@@ -29,11 +29,14 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "slam_gated_match": [_P] * 12 + [_I] * 4 + [_P],
     "slam_hamming_matrix": [_P, _P, _P, _I, _I, _P],
     "slam_gated_match_batched": [_P] * 12 + [_I] * 5 + [_P],
     "slam_hamming_batched": [_P, _P, _P, _I, _I, _I, _P],
+    "slam_pose_lm": [_P] * 13 + [_I] * 4 + [_F, _P],
+    "slam_pose_lm_batched": [_P] * 13 + [_I] * 5 + [_F, _P],
 }
 
 

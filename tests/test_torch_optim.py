@@ -1,7 +1,9 @@
 """Pose optimization and local BA of the port against the JAX package on
 the same seeded problems. Tolerance: R and t within atol 1e-4 and equal
 inlier masks for optimize_pose (float32 sums in another order); BA poses
-and points within atol 1e-3 after 15 damped GN steps."""
+and points within atol 1e-3 after 15 damped GN steps. On CPU tensors
+optimize_pose is the plain loop, bit for bit; the pose LM's op (kernel
+K3) refuses them."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -12,7 +14,9 @@ from slam_dynamic_tpu.optim.pose_opt import optimize_pose as jopt
 from slam_dynamic_tpu.optim.residuals import reprojection_terms as jterms
 from slam_dynamic_tpu.utils import camera as jcam
 from slam_dynamic_tpu.utils import se3 as jse3
+from slam_dynamic_tpu_torch.kernel_bench import k3_problem
 from slam_dynamic_tpu_torch.optim import local_ba as tba
+from slam_dynamic_tpu_torch.optim import pose_opt as tpo
 from slam_dynamic_tpu_torch.optim.pose_opt import optimize_pose as topt
 from slam_dynamic_tpu_torch.optim.residuals import \
     reprojection_terms as tterms
@@ -71,6 +75,34 @@ def test_optimize_pose_matches(stereo, rounds, iters):
     np.testing.assert_allclose(np.asarray(rj.t), rt.t.numpy(), atol=1e-4)
     np.testing.assert_array_equal(np.asarray(rj.inliers), rt.inliers.numpy())
     assert int(rj.n_inliers) == int(rt.n_inliers) > 150
+
+
+@pytest.mark.parametrize("stereo", [False, True])
+def test_optimize_pose_on_cpu_is_the_plain_loop(stereo):
+    R0, t0, pts, obs, inv_s2, valid, urw = _problem(2, stereo=stereo)
+    args = (TCAM, T(R0), T(t0), T(pts), T(obs), T(inv_s2), T(valid))
+    kw = dict(stereo=stereo, rounds=2, iters=6,
+              ur_weight=T(urw) if stereo else None)
+    got, ref = topt(*args, **kw), tpo.optimize_pose_plain(*args, **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("vmapped", [False, True])
+def test_pose_lm_op_refuses_cpu_tensors(vmapped):
+    """K3's op, alone and through its vmap rule, takes CUDA tensors only:
+    on CPU tensors it raises before any build or launch (optimize_pose
+    sends those to the plain loop)."""
+    p = k3_problem(np.random.default_rng(0), 64, 3, 0.3)
+    cam, urw, two_lanes = p[0], p[7], [torch.stack([x, x]) for x in p[1:7]]
+    before = tpo.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        if vmapped:
+            torch.func.vmap(
+                lambda *a: tpo.pose_lm(cam, *a, urw, 2, 6, 7.815))(*two_lanes)
+        else:
+            tpo.pose_lm(*p, 2, 6, 7.815)
+    assert tpo.launches == before
 
 
 def test_invert3x3_matches():
